@@ -1,0 +1,78 @@
+"""JAX package params -> the port's state dict.
+
+``state_dict_from_flax`` is the inverse of
+``pixelwiseregression_tpu/compat/torch_ckpt.py::convert_state_dict``: it takes
+the JAX model's ``{"params", "batch_stats"}`` trees as numpy and returns a
+state dict under the reference torch names, which the port's
+``PixelwiseRegression`` loads natively:
+
+* conv kernels transpose HWIO -> OIHW;
+* norm ``scale``/``bias`` -> ``weight``/``bias``; BatchNorm ``mean``/``var`` ->
+  ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``);
+* the anchored norm's ``anchor``/``anchor_n`` keep their names (the forward
+  converter does not carry them);
+* flax module names -> the reference's ``nn.Sequential`` indices, by the
+  tables below (the inverse of the converter's).
+
+numpy and torch only; it never imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# ResBlock Sequential: [norm, relu, conv1x1, norm, relu, convkxk, norm, relu, conv1x1]
+_RESBLOCK_IDX = {"norm_0": 0, "conv_0": 2, "norm_1": 3, "conv_1": 5, "norm_2": 6, "conv_2": 8}
+# plane/depth head Sequential: [conv, norm, relu] * 3 + [conv]
+_HEAD_IDX = {"conv_0": 0, "norm_0": 1, "conv_1": 3, "norm_1": 4, "conv_2": 6, "norm_2": 7,
+             "conv_3": 9}
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var", "anchor": "anchor", "anchor_n": "anchor_n"}
+
+
+def _module_name(path: Tuple[str, ...]) -> str:
+    """flax module path -> reference module name."""
+    head, rest = path[0], path[1:]
+    if head.startswith("stem_") and not rest:
+        kind, k = head[len("stem_"):].rsplit("_", 1)
+        return f"conv.{3 * int(k) + (0 if kind == 'conv' else 1)}"
+    if head.startswith("stage_") and rest:
+        stage = f"stages.{head[len('stage_'):]}"
+        if rest == ("proj",):
+            return f"{stage}.conv"
+        if rest[0] == "hourglass" and rest[-1] in _RESBLOCK_IDX:
+            return ".".join([stage, *rest[:-1], "conv", str(_RESBLOCK_IDX[rest[-1]])])
+        if rest[0] in ("plane", "depth") and len(rest) == 2:
+            return f"{stage}.{rest[0]}_regression.conv.{_HEAD_IDX[rest[1]]}"
+    raise KeyError(f"no reference name for flax module {'/'.join(path)}")
+
+
+def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` numpy trees -> reference-named state dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], path: Tuple[str, ...]):
+        for name, node in tree.items():
+            if isinstance(node, Mapping):
+                walk(node, path + (name,))
+                continue
+            value = np.array(node, np.float32)  # a writable copy for torch
+            if name == "w" and len(path) == 1:
+                key = f"stages.{path[0][len('stage_'):]}.plane_regression.w"
+            else:
+                module = path
+                if path[-1] == "conv":  # the flax nn.Conv inside the Conv wrapper
+                    module = path[:-1]
+                    if name == "kernel":
+                        value = value.transpose(3, 2, 0, 1)
+                key = f"{_module_name(module)}.{_LEAF[name]}"
+                if name == "mean":
+                    out[f"{_module_name(module)}.num_batches_tracked"] = torch.tensor(0)
+            out[key] = torch.from_numpy(np.ascontiguousarray(value))
+
+    for collection in ("params", "batch_stats"):
+        walk(variables.get(collection, {}), ())
+    return out

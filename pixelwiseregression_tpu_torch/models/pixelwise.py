@@ -1,0 +1,176 @@
+"""PixelwiseRegression — stacked-hourglass network with soft-argmax decoding
+(mirrors ``pixelwiseregression_tpu/models/pixelwise.py``).
+
+NCHW. The module tree reproduces the reference torch model's state-dict
+names (``conv.N.*`` for the stem, ``stages.N.conv`` for the 1x1 projection,
+``stages.N.hourglass.{input_conv,inner,output_conv}...conv.K.*``,
+``stages.N.{plane,depth}_regression.conv.K.*``,
+``stages.N.plane_regression.w``), so a reference ``.pt`` state dict loads
+natively and ``compat/flax_bridge.py`` maps the JAX package's params onto it.
+
+The int8 quantized convs, the paired heads and remat come with later parts
+of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pixelwiseregression_tpu_torch.models.layers import (
+    Conv,
+    make_norm,
+    max_pool_2x2,
+    upsample_nearest_2x_add,
+)
+from pixelwiseregression_tpu_torch.ops import cuda_softargmax
+from pixelwiseregression_tpu_torch.ops.softargmax import soft_argmax_decode_flat
+
+
+class ResBlock(nn.Module):
+    """Pre-activation bottleneck residual: [norm, relu, conv1x1, norm, relu,
+    convkxk, norm, relu, conv1x1] + skip."""
+
+    def __init__(self, features: int, kernel_size: int = 3, norm_method: str = "instance"):
+        super().__init__()
+        f, h = features, features // 2
+        self.conv = nn.Sequential(
+            make_norm(norm_method, f), nn.ReLU(), Conv(f, h, 1),
+            make_norm(norm_method, h), nn.ReLU(), Conv(h, h, kernel_size),
+            make_norm(norm_method, h), nn.ReLU(), Conv(h, f, 1),
+        )
+
+    def forward(self, x):
+        return x + self.conv(x)
+
+
+class Hourglass(nn.Module):
+    """Recursive encoder/decoder with a skip at every level."""
+
+    def __init__(self, features: int, level: int = 4, norm_method: str = "instance"):
+        super().__init__()
+        # the reference hourglass always uses 3x3 convs, whatever --filter_size is
+        self.input_conv = ResBlock(features, 3, norm_method)
+        if level > 0:
+            self.inner = Hourglass(features, level - 1, norm_method)
+        else:
+            self.inner = ResBlock(features, 3, norm_method)
+        self.output_conv = ResBlock(features, 3, norm_method)
+
+    def forward(self, x):
+        x = self.input_conv(x)
+        h = self.inner(max_pool_2x2(x))
+        return upsample_nearest_2x_add(self.output_conv(h), x)
+
+
+class _Head(nn.Module):
+    """4-conv regression head: [conv, norm, relu] * 3 + [conv]. The plane
+    head also holds the learned per-joint softmax temperature ``w [J, 1]``."""
+
+    def __init__(self, features: int, out_features: int, kernel_size: int,
+                 norm_method: str, temperature: bool):
+        super().__init__()
+        layers = []
+        for _ in range(3):
+            layers += [Conv(features, features, kernel_size), make_norm(norm_method, features),
+                       nn.ReLU()]
+        self.conv = nn.Sequential(*layers, Conv(features, out_features, kernel_size))
+        if temperature:
+            self.w = nn.Parameter(torch.ones(out_features, 1))
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class PredictionBlock(nn.Module):
+    """1x1 projection -> hourglass -> plane and depth heads -> decoder.
+
+    ``decoder='cuda'`` sends the softmax decode through the CUDA kernel
+    wrapper (which runs its plain version for CPU tensors); ``'torch'`` runs
+    the plain version. The ``sum`` heatmap method always runs the plain
+    version, as in the JAX package.
+    """
+
+    def __init__(self, in_channels: int, joints: int, features: int = 256, level: int = 4,
+                 kernel_size: int = 3, norm_method: str = "instance",
+                 heatmap_method: str = "softmax", decoder: str = "torch"):
+        super().__init__()
+        if decoder not in ("torch", "cuda"):
+            raise ValueError(f"unknown decoder: {decoder}")
+        if heatmap_method not in ("softmax", "sum"):
+            raise ValueError(f"unknown heatmap method: {heatmap_method}")
+        self.heatmap_method = heatmap_method
+        self.decoder = decoder
+        self.conv = Conv(in_channels, features, 1)
+        self.hourglass = Hourglass(features, level, norm_method)
+        self.plane_regression = _Head(features, joints, kernel_size, norm_method,
+                                      temperature=heatmap_method == "softmax")
+        self.depth_regression = _Head(features, joints, kernel_size, norm_method,
+                                      temperature=False)
+
+    def forward(self, x, label_img, mask):
+        f = self.hourglass(self.conv(x))
+        logits = self.plane_regression(f)
+        depthmaps = self.depth_regression(f)
+        b, j, h, wd = logits.shape
+        rows = [t.reshape(b, t.shape[1], h * wd).contiguous()
+                for t in (logits, depthmaps, label_img, mask)]
+        if self.heatmap_method == "softmax":
+            w = self.plane_regression.w[:, 0]
+            if self.decoder == "cuda":
+                # inference keeps the maps' own dtype at the boundary (bf16
+                # heatmaps under mixed precision), as the JAX fast boundary does
+                heatmaps, uvd = cuda_softargmax.decode_flat(*rows, w, h, wd,
+                                                            hm_dtype=logits.dtype)
+            else:
+                heatmaps, uvd = soft_argmax_decode_flat(*rows, w, h, wd)
+        else:
+            heatmaps, uvd = soft_argmax_decode_flat(*rows, None, h, wd, method="sum")
+        return heatmaps.reshape(b, j, h, wd), depthmaps, uvd
+
+
+class PixelwiseRegression(nn.Module):
+    """Flagship model. ``forward(img [B,1,2S,2S], label_img [B,1,S,S],
+    mask [B,1,S,S])`` returns a list of per-stage (heatmaps ``[B,J,S,S]``,
+    depthmaps ``[B,J,S,S]``, uvd ``[B,J,3]``).
+
+    ``dtype`` is the activation dtype: img, label_img and mask are cast to it
+    first, so under bf16 the decoder sees the bf16-rounded label image and
+    mask, as in the JAX package.
+    """
+
+    def __init__(self, joints: int, stage: int = 2, features: int = 256, level: int = 4,
+                 kernel_size: int = 3, norm_method: str = "instance",
+                 heatmap_method: str = "softmax", decoder: str = "torch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        # stem: 1 -> 32, feature-doubling kxk convs up to `features`, then a
+        # stride-2 conv halving the spatial size
+        widths = [32]
+        while widths[-1] < features:
+            widths.append(min(2 * widths[-1], features))
+        layers, cin = [], 1
+        for w in widths:
+            layers += [Conv(cin, w, kernel_size), make_norm(norm_method, w), nn.ReLU()]
+            cin = w
+        layers += [Conv(cin, features, kernel_size, stride=2),
+                   make_norm(norm_method, features), nn.ReLU()]
+        self.conv = nn.Sequential(*layers)
+        self.stages = nn.ModuleList(
+            PredictionBlock(features if s == 0 else 2 * joints + 1, joints, features, level,
+                            kernel_size, norm_method, heatmap_method, decoder)
+            for s in range(stage)
+        )
+
+    def forward(self, img, label_img, mask):
+        label_img = label_img.to(self.dtype)
+        mask = mask.to(self.dtype)
+        f = self.conv(img.to(self.dtype))
+        results = []
+        for block in self.stages:
+            heatmaps, depthmaps, uvd = block(f, label_img, mask)
+            results.append((heatmaps, depthmaps, uvd))
+            # next-stage input: concat(heatmaps, depthmaps, label_img) -> 2J+1
+            f = torch.cat([heatmaps.to(self.dtype), depthmaps.to(self.dtype), label_img], dim=1)
+        return results

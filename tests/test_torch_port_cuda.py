@@ -1,0 +1,141 @@
+"""The port's CUDA kernel on the card: the soft-argmax decoder kernel vs its
+plain PyTorch version, the wrapper's checks, and the Predictor through the
+kernel.
+
+Every test is marked ``cuda`` and skips where no CUDA card is visible. The
+file imports neither jax nor the JAX package, so it also runs on a machine
+without jax (``tests/conftest.py`` imports jax; pass ``--noconftest`` there):
+
+    python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pixelwiseregression_tpu_torch.data.sources import SPECS
+from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.ops import cuda_softargmax as tcuda
+from pixelwiseregression_tpu_torch.ops import softargmax as tsa
+from pixelwiseregression_tpu_torch.serve import Predictor
+from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+def _rows(device, dtype, b, j, h, w, seed=10):
+    rng = np.random.RandomState(seed)
+    hw = h * w
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+
+    return (put(3 * rng.randn(b, j, hw)), put(rng.randn(b, j, hw)), put(rng.randn(b, 1, hw)),
+            put(rng.rand(b, 1, hw) > 0.4),
+            torch.from_numpy((rng.rand(j) + 0.5).astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(32, 14, 64, 64), (3, 21, 24, 40)])
+def test_kernel_matches_plain_version(device, dtype, shape):
+    """f32 hm rtol 1e-5 atol 1e-8 (both compute in f32; only the summation
+    order differs), bf16 hm within 1 ulp, uvd rtol 1e-5 atol 1e-6. The
+    second shape has a map width that is not a power of two."""
+    dt = getattr(torch, dtype)
+    b, j, h, w = shape
+    x, dm, label, mask, wt = _rows(device, dt, b, j, h, w)
+    before = tcuda.LAUNCHES
+    hm_k, uvd_k = tcuda.decode_flat(x, dm, label, mask, wt, h, w, hm_dtype=dt)
+    torch.cuda.synchronize()
+    assert tcuda.LAUNCHES == before + 1
+    hm_p, uvd_p = tsa.soft_argmax_decode_flat(x, dm, label, mask, wt, h, w)
+    if dt == torch.float32:
+        torch.testing.assert_close(hm_k, hm_p, rtol=1e-5, atol=1e-8)
+    else:
+        ulps = (hm_k.view(torch.int16).int() - hm_p.to(dt).view(torch.int16).int()).abs()
+        assert int(ulps.max()) <= 1
+    torch.testing.assert_close(uvd_k, uvd_p, rtol=1e-5, atol=1e-6)
+
+
+def test_nhwc_wrapper_matches_plain_decoder(device):
+    """The JAX-signature wrapper (NHWC in, f32 boundary) on the card."""
+    x, dm, label, mask, wt = _rows(device, torch.float32, 2, 14, 32, 32, seed=11)
+
+    def nhwc(t):
+        return t.reshape(t.shape[0], t.shape[1], 32, 32).permute(0, 2, 3, 1)
+
+    args = [nhwc(t) for t in (x, dm, label, mask)] + [wt]
+    hm_k, uvd_k = tcuda.soft_argmax_decode_cuda(*args)
+    hm_p, uvd_p = tsa.soft_argmax_decode(*args)
+    torch.testing.assert_close(hm_k, hm_p, rtol=1e-5, atol=1e-8)
+    torch.testing.assert_close(uvd_k, uvd_p, rtol=1e-5, atol=1e-6)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(device):
+    x, dm, label, mask, wt = _rows(device, torch.float32, 2, 4, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+        tcuda.decode_flat(strided, dm, label, mask, wt, 8, 8)
+    with pytest.raises(TypeError, match="one dtype"):
+        tcuda.decode_flat(x, dm.to(torch.bfloat16), label, mask, wt, 8, 8)
+    with pytest.raises(ValueError, match="pixels per row"):
+        tcuda.decode_flat(x, dm, label, mask, wt, 4, 8)
+    with pytest.raises(ValueError):
+        tcuda.decode_flat(x, dm, label.cpu(), mask, wt, 8, 8)
+
+
+def test_predictor_through_the_kernel_matches_plain_decoder(device):
+    """A small bf16 Predictor on the card: decoder='cuda' launches the kernel
+    once per stage and agrees with decoder='torch' within 1e-3 normalized
+    (bf16 heatmaps from the two decoders may differ by 1 ulp before stage 2)."""
+    spec = SPECS["NYU"]
+    torch.manual_seed(0)
+    state = PixelwiseRegression(14, stage=2, features=32, level=2,
+                                norm_method="instance_anchored").state_dict()
+    kw = dict(batch_size=8, stages=2, features=32, level=2, label_size=64,
+              dtype=torch.bfloat16)
+    preds = {d: Predictor.from_state_dict(state, "NYU", device, decoder=d, **kw)
+             for d in ("cuda", "torch")}
+    raw = make_synthetic_raw_batch(5, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=150.0, com_z=480.0)
+    before = tcuda.LAUNCHES
+    got = preds["cuda"].predict(raw["frame"], raw["com"])
+    assert tcuda.LAUNCHES == before + 2
+    want = preds["torch"].predict(raw["frame"], raw["com"])
+    assert np.isfinite(got["uvd"]).all()
+    box = raw["box_size"][:, None].astype(np.float64) - 1.0
+    gap = np.abs(got["uvd"] - want["uvd"])
+    assert (gap[..., 0] / box).max() <= 1e-3 and (gap[..., 1] / box).max() <= 1e-3
+    assert (gap[..., 2] / 150.0).max() <= 1e-3
+
+
+def test_f32_predictor_on_the_card_matches_the_cpu(device):
+    """The same small f32 model and requests on the card (kernel decoder,
+    cuDNN with TF32 off) and on the CPU (plain PyTorch, which the CPU tests
+    hold against the JAX package): uvd and xyz within 2e-2 px/mm.
+
+    Two-pass `instance` norms: with random weights the anchored norm's anchors
+    are uncalibrated (anchor_n = 0), which makes it the raw one-pass form,
+    and that form's result depends on the order of its sums (~0.7 px apart
+    between card and CPU here)."""
+    spec = SPECS["MSRA"]
+    torch.manual_seed(1)
+    state = PixelwiseRegression(21, stage=2, features=16, level=2,
+                                norm_method="instance").state_dict()
+    kw = dict(batch_size=4, stages=2, features=16, level=2, label_size=32,
+              norm_method="instance", dtype=torch.float32)
+    card = Predictor.from_state_dict(state, "MSRA", device, decoder="cuda", **kw)
+    host = Predictor.from_state_dict(state, "MSRA", "cpu", decoder="torch", **kw)
+    raw = make_synthetic_raw_batch(3, 240, 320, 21, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=125.0, com_z=400.0, seed=5)
+    got = card.predict(raw["frame"], raw["com"])
+    want = host.predict(raw["frame"], raw["com"])
+    for k in ("uvd", "xyz"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=2e-2)
