@@ -14,6 +14,10 @@ state dict under the reference torch names, which the port's
 * flax module names -> the reference's ``nn.Sequential`` indices, by the
   tables below (the inverse of the converter's).
 
+A gradient tree maps like a params tree: ``state_dict_from_flax({"params":
+grads})`` names each gradient as the port names its parameter (the tests
+compare a JAX train step's gradients with the port's this way).
+
 numpy and torch only; it never imports jax.
 """
 

@@ -1,7 +1,8 @@
 """Pinhole camera transforms (mirrors ``pixelwiseregression_tpu/core/camera.py``).
 
 ``Camera`` works on host numpy arrays, keeping float64 exact where the host
-builds crop integers; ``recover_uvd`` works on tensors on the device.
+builds crop integers, and on tensors on the device (the eval step's
+metric); ``recover_uvd`` works on tensors.
 """
 
 from __future__ import annotations
@@ -10,6 +11,13 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+def _stack(parts):
+    """np.stack for host arrays, torch.stack for tensors."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.stack(parts, dim=-1)
+    return np.stack(parts, axis=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,17 +29,17 @@ class Camera:
     halfu: float
     halfv: float
 
-    def xyz2uvd(self, x: np.ndarray) -> np.ndarray:
+    def xyz2uvd(self, x):
         """World xyz -> image-space (u, v, depth). Last axis is 3."""
         u = x[..., 0] * self.fx / x[..., 2] + self.halfu
         v = x[..., 1] * self.fy / x[..., 2] + self.halfv
-        return np.stack([u, v, x[..., 2]], axis=-1)
+        return _stack([u, v, x[..., 2]])
 
-    def uvd2xyz(self, x: np.ndarray) -> np.ndarray:
+    def uvd2xyz(self, x):
         """Image-space (u, v, depth) -> world xyz. Last axis is 3."""
         gx = (x[..., 0] - self.halfu) / self.fx * x[..., 2]
         gy = (x[..., 1] - self.halfv) / self.fy * x[..., 2]
-        return np.stack([gx, gy, x[..., 2]], axis=-1)
+        return _stack([gx, gy, x[..., 2]])
 
 
 def recover_uvd(uvd: torch.Tensor, box_size: torch.Tensor, com: torch.Tensor,

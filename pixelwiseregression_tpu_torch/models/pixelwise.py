@@ -8,8 +8,10 @@ names (``conv.N.*`` for the stem, ``stages.N.conv`` for the 1x1 projection,
 ``stages.N.plane_regression.w``), so a reference ``.pt`` state dict loads
 natively and ``compat/flax_bridge.py`` maps the JAX package's params onto it.
 
-The int8 quantized convs, the paired heads and remat come with later parts
-of the port.
+``model.train()`` is the JAX package's ``train=True``: BatchNorm takes batch
+statistics, the anchored instance norms update their anchors, and the
+kernel decoder takes the f32 training boundary. The int8 quantized convs,
+the paired heads and remat come with later parts of the port.
 """
 
 from __future__ import annotations
@@ -88,7 +90,10 @@ class PredictionBlock(nn.Module):
     ``decoder='cuda'`` sends the softmax decode through the CUDA kernel
     wrapper (which runs its plain version for CPU tensors); ``'torch'`` runs
     the plain version. The ``sum`` heatmap method always runs the plain
-    version, as in the JAX package.
+    version, as in the JAX package. In train mode, or whenever grad mode is
+    on, the kernel decoder takes f32 maps and returns f32 heatmaps and is
+    differentiable (K1 forward, K2 backward); otherwise it keeps the maps'
+    own dtype (the JAX package's inference fast boundary).
     """
 
     def __init__(self, in_channels: int, joints: int, features: int = 256, level: int = 4,
@@ -117,7 +122,12 @@ class PredictionBlock(nn.Module):
                 for t in (logits, depthmaps, label_img, mask)]
         if self.heatmap_method == "softmax":
             w = self.plane_regression.w[:, 0]
-            if self.decoder == "cuda":
+            if self.decoder == "cuda" and (self.training or torch.is_grad_enabled()):
+                # training: f32 maps in and f32 heatmaps out, through K1 and
+                # K2, as the JAX package's custom VJP takes them
+                heatmaps, uvd = cuda_softargmax.decode_flat(
+                    *(t.to(torch.float32) for t in rows), w, h, wd)
+            elif self.decoder == "cuda":
                 # inference keeps the maps' own dtype at the boundary (bf16
                 # heatmaps under mixed precision), as the JAX fast boundary does
                 heatmaps, uvd = cuda_softargmax.decode_flat(*rows, w, h, wd,

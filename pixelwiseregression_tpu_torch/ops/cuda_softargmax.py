@@ -1,20 +1,29 @@
-"""Fused soft-argmax decoder forward as a hand-written CUDA kernel for Hopper
+"""Fused soft-argmax decoder as hand-written CUDA kernels for Hopper
 (counterpart of ``pixelwiseregression_tpu/ops/pallas_softargmax.py``).
 
-The kernel (``csrc/softargmax_fwd.cu``) is compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface the first time it
-is needed, cached under ``_build/`` by the hash of its source, and bound with
-ctypes. A build or load failure raises.
+Two kernels, each in its own source under ``csrc/``:
+
+* K1, ``softargmax_fwd.cu``: the forward (heatmaps and uvd);
+* K2, ``softargmax_bwd.cu``: the backward, which recomputes the forward and
+  returns the gradients of the logits, the depth maps, the label image and
+  the temperature ``w``.
+
+``build()`` compiles both sources (with their shared ``.cuh`` header) with
+one ``nvcc`` call for ``sm_90a`` into one shared library with a plain C
+interface under ``_build/``, named by the hash of ``csrc/``, the first time a
+kernel is needed; it is bound with ctypes. A build or load failure raises.
 
 Wrappers, and what they do with each tensor:
 
-* CPU tensors go to the plain PyTorch version (``ops/softargmax.py``);
-* CUDA tensors launch the kernel or raise; there is no fallback;
-* an input that requires grad raises while autograd is on: the backward
-  kernel is not ported yet.
+* CPU tensors go to the plain PyTorch versions: ``ops/softargmax.py`` for
+  the forward, autograd through it for the backward;
+* CUDA tensors launch the kernels or raise; there is no fallback;
+* when autograd needs the decoder's gradients, ``decode_flat`` runs through
+  a ``torch.autograd.Function`` whose forward is K1 and whose backward is K2.
+  Its maps must be f32, as the JAX package's custom VJP takes them.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+``LAUNCHES`` (K1) and ``BWD_LAUNCHES`` (K2) count kernel launches, so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -35,11 +44,19 @@ from pixelwiseregression_tpu_torch.ops.softargmax import (
 )
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "softargmax_fwd.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _DTYPES = (torch.float32, torch.bfloat16)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # (in_bf16, hm_bf16, x, dm, label, mask, w, hm, uvd, B, J, H, W, stream)
+    "softargmax_fwd": [_I] * 2 + [_P] * 7 + [_I] * 4 + [_P],
+    # (x, dm, label, mask, w, g_hm, g_uvd, dx, ddm, dlabel, dw, B, J, H, W, stream)
+    "softargmax_bwd": [_P] * 11 + [_I] * 4 + [_P],
+}
 _lib = None
 
 
@@ -55,19 +72,23 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernel if its source changed; returns (library, compiler log).
+    """Compile the kernels if a source changed; returns (library, compiler log).
 
     The log holds ``-Xptxas -v``'s registers, shared memory and spills for a
     fresh build, and is empty when the cached library was current.
     """
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libsoftargmax_fwd_{digest}.so"
+    sources = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256()
+    for src in sorted(_CSRC.glob("*.cu*")):
+        h.update(src.name.encode() + src.read_bytes())
+    lib = _BUILD_DIR / f"libsoftargmax_{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
@@ -78,13 +99,11 @@ def build() -> tuple[Path, str]:
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.softargmax_fwd
-        # (in_bf16, hm_bf16, x, dm, label, mask, w, hm, uvd, B, J, H, W, stream)
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -111,21 +130,20 @@ def _check(x, dm, label, mask, w, h, wd, hm_dtype):
             raise ValueError("kernel needs contiguous, 16-byte aligned tensors")
 
 
-def decode_flat(x, dm, label, mask, w, h: int, wd: int, hm_dtype=torch.float32):
-    """Softmax decode of ``[B, J, H*W]`` rows: the model's entry.
+def _on_cpu(*tensors) -> bool:
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"the decoder runs on CPU or CUDA tensors, not {tensors[0].device}")
+    return False
 
-    ``x``, ``dm``: ``[B, J, H*W]``; ``label``, ``mask``: ``[B, 1, H*W]``, all
-    in one dtype (f32 or bf16); ``w``: ``[J]`` f32. Returns heatmaps
-    ``[B, J, H*W]`` in ``hm_dtype`` and uvd ``[B, J, 3]`` f32, computed in f32.
-    """
+
+def _forward(x, dm, label, mask, w, h, wd, hm_dtype):
+    """K1, or its plain version for CPU tensors."""
     global LAUNCHES
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dm, label, mask, w)):
-        raise RuntimeError("decode_flat is forward only: its backward kernel is not ported yet")
-    if all(t.device.type == "cpu" for t in (x, dm, label, mask, w)):
+    if _on_cpu(x, dm, label, mask, w):
         hm, uvd = soft_argmax_decode_flat(x, dm, label, mask, w, h, wd)
         return hm.to(hm_dtype), uvd
-    if x.device.type != "cuda":
-        raise ValueError(f"decode_flat runs on CPU or CUDA tensors, not {x.device}")
     _check(x, dm, label, mask, w, h, wd, hm_dtype)
     b, j, hw = x.shape
     hm = torch.empty((b, j, hw), dtype=hm_dtype, device=x.device)
@@ -141,6 +159,79 @@ def decode_flat(x, dm, label, mask, w, h: int, wd: int, hm_dtype=torch.float32):
     return hm, uvd
 
 
+def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
+    """The decoder's backward (K2, or autograd of the plain version for CPU tensors).
+
+    ``x``, ``dm``: ``[B, J, H*W]``; ``label``, ``mask``: ``[B, 1, H*W]``;
+    ``w``: ``[J]``, all f32; ``g_hm`` ``[B, J, H*W]`` and ``g_uvd``
+    ``[B, J, 3]``: the cotangents of ``decode_flat``'s outputs. Returns
+    ``(dx, ddm, dlabel, dw)`` with ``dw`` ``[J]`` summed over the batch.
+    """
+    global BWD_LAUNCHES
+    g_hm = g_hm.to(torch.float32).contiguous()
+    g_uvd = g_uvd.to(torch.float32).contiguous()
+    if _on_cpu(x, dm, label, mask, w, g_hm, g_uvd):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, dm, label, w)]
+            out = soft_argmax_decode_flat(leaves[0], leaves[1], leaves[2], mask, leaves[3],
+                                          h, wd)
+            return torch.autograd.grad(out, leaves, (g_hm, g_uvd))
+    _check(x, dm, label, mask, w, h, wd, torch.float32)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the backward kernel takes f32 maps, got {x.dtype}")
+    b, j, hw = x.shape
+    if g_hm.shape != x.shape or g_uvd.shape != (b, j, 3):
+        raise ValueError(f"cotangents g_hm {tuple(g_hm.shape)} g_uvd {tuple(g_uvd.shape)}")
+    if g_hm.device != x.device or g_uvd.device != x.device:
+        raise ValueError(f"cotangents on {g_hm.device} / {g_uvd.device}, maps on {x.device}")
+    dx, ddm = torch.empty_like(x), torch.empty_like(x)
+    dlabel = torch.empty_like(label)
+    dw = torch.empty((b, j), dtype=torch.float32, device=x.device)
+    rc = _load().softargmax_bwd(
+        x.data_ptr(), dm.data_ptr(), label.data_ptr(), mask.data_ptr(), w.data_ptr(),
+        g_hm.data_ptr(), g_uvd.data_ptr(), dx.data_ptr(), ddm.data_ptr(), dlabel.data_ptr(),
+        dw.data_ptr(), b, j, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"softargmax_bwd launch failed with cudaError {rc}")
+    BWD_LAUNCHES += 1
+    # per-row dw [B, J] reduces over the batch outside the kernel, as in the JAX package
+    return dx, ddm, dlabel, dw.sum(dim=0)
+
+
+class _Decode(torch.autograd.Function):
+    """K1 forward, K2 backward. The mask gets no gradient (it is 0/1 input
+    data, as in the JAX package's custom VJP). An output the loss does not
+    use reaches the backward as materialized zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dm, label, mask, w, h, wd):
+        ctx.save_for_backward(x, dm, label, mask, w)
+        ctx.hw = (h, wd)
+        return _forward(x, dm, label, mask, w, h, wd, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g_hm, g_uvd):
+        dx, ddm, dlabel, dw = decode_flat_backward(*ctx.saved_tensors, g_hm, g_uvd, *ctx.hw)
+        return dx, ddm, dlabel, None, dw, None, None
+
+
+def decode_flat(x, dm, label, mask, w, h: int, wd: int, hm_dtype=torch.float32):
+    """Softmax decode of ``[B, J, H*W]`` rows: the model's entry.
+
+    ``x``, ``dm``: ``[B, J, H*W]``; ``label``, ``mask``: ``[B, 1, H*W]``, all
+    in one dtype (f32 or bf16); ``w``: ``[J]`` f32. Returns heatmaps
+    ``[B, J, H*W]`` in ``hm_dtype`` and uvd ``[B, J, 3]`` f32, computed in f32.
+    When an input requires grad (and grad mode is on) the call is
+    differentiable through K2; it then takes f32 maps and returns f32 heatmaps.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dm, label, mask, w)):
+        if x.dtype != torch.float32 or hm_dtype != torch.float32:
+            raise TypeError(f"the differentiable decoder takes and returns f32 maps, got "
+                            f"{x.dtype} -> {hm_dtype}")
+        return _Decode.apply(x, dm, label, mask, w, h, wd)
+    return _forward(x, dm, label, mask, w, h, wd, hm_dtype)
+
+
 def soft_argmax_decode_cuda(logits, depthmaps, label_img, mask, w,
                             method: str = "softmax", fast_boundary: bool = False):
     """Drop-in for ``ops.softargmax.soft_argmax_decode``, as
@@ -149,8 +240,9 @@ def soft_argmax_decode_cuda(logits, depthmaps, label_img, mask, w,
     Maps NHWC ``[B, H, W, J]``, label/mask ``[B, H, W, 1]``, ``w`` ``[J]``;
     returns heatmaps ``[B, H, W, J]`` and uvd ``[B, J, 3]`` f32.
     ``fast_boundary=True`` keeps the maps in their own dtype (bf16 under
-    mixed precision) and returns heatmaps in it; otherwise maps go in and
-    come out as f32. The ``sum`` method runs the plain version.
+    mixed precision) and returns heatmaps in it (inference only); otherwise
+    maps go in and come out as f32, and the call is differentiable. The
+    ``sum`` method runs the plain version.
     """
     if method != "softmax":
         return soft_argmax_decode(logits, depthmaps, label_img, mask, w, method)

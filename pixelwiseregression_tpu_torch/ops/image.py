@@ -9,13 +9,22 @@ beyond ``src - 1`` snaps to pixel ``src - 1``.
 ``crop_resize`` folds the reference's zero-padded window crop and the resize
 into one gather over the full frame. Each sample has its own crop size and
 corner, so the JAX package's ``vmap`` becomes a batch dimension of per-sample
-tap indices. ``warp_affine_inverse`` and ``gaussian_blur`` come with the
-training port.
+tap indices.
+
+``warp_affine_inverse`` (cv2.warpAffine, INTER_LINEAR, BORDER_CONSTANT 0) is
+the explicit 4-tap bilinear gather. The JAX package's default evaluates the
+same taps as hat functions through a matmul, a form for the TPU's matrix
+unit; the two agree to f32 rounding. ``gaussian_blur`` is cv2.GaussianBlur:
+a separable kernel computed in float64, BORDER_REFLECT_101 padding.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _resize_taps(out_size: int, src_size: torch.Tensor):
@@ -91,3 +100,67 @@ def crop_resize(
         return vals * ok[:, None, :].to(frame.dtype)
 
     return gather_cols(c0) * (1.0 - wc)[:, None, :] + gather_cols(c1) * wc[:, None, :]
+
+
+def rotation_matrix_inverse(angle_deg: torch.Tensor, scale: torch.Tensor, center_x: float,
+                            center_y: float) -> torch.Tensor:
+    """Inverse of cv2.getRotationMatrix2D(center, angle, scale) as ``[..., 6]``
+    (``[m00, m01, m02, m10, m11, m12]``, the dst -> src map): a rotation by
+    ``-angle`` scaled by ``1 / scale`` about the same center."""
+    t = angle_deg * (math.pi / 180.0)
+    a = torch.cos(t) / scale
+    b = torch.sin(t) / scale
+    m00, m01 = a, -b
+    m10, m11 = b, a
+    m02 = center_x - (m00 * center_x + m01 * center_y)
+    m12 = center_y - (m10 * center_x + m11 * center_y)
+    return torch.stack([m00, m01, m02, m10, m11, m12], dim=-1)
+
+
+def warp_affine_inverse(img: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
+    """cv2.warpAffine of ``[B, H, W]`` images with per-sample dst -> src
+    matrices ``minv`` ``[B, 6]``. INTER_LINEAR, BORDER_CONSTANT 0, with
+    unquantized float source coordinates (modern cv2 for float images)."""
+    b, h, w = img.shape
+    gy = torch.arange(h, dtype=img.dtype, device=img.device)[:, None]
+    gx = torch.arange(w, dtype=img.dtype, device=img.device)[None, :]
+    m = [minv[:, i, None, None] for i in range(6)]  # [B, 1, 1] each
+    sx = m[0] * gx + m[1] * gy + m[2]
+    sy = m[3] * gx + m[4] * gy + m[5]
+    ix = torch.floor(sx).to(torch.int64)
+    iy = torch.floor(sy).to(torch.int64)
+    fx = sx - ix.to(img.dtype)
+    fy = sy - iy.to(img.dtype)
+
+    flat = img.reshape(b, h * w)
+
+    def tap(yi, xi):
+        ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        return torch.gather(flat, 1, idx.reshape(b, -1)).reshape(b, h, w) * ok.to(img.dtype)
+
+    top = tap(iy, ix) * (1.0 - fx) + tap(iy, ix + 1) * fx
+    bot = tap(iy + 1, ix) * (1.0 - fx) + tap(iy + 1, ix + 1) * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    """cv2.getGaussianKernel(ksize, sigma) in float64."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+    """cv2.GaussianBlur(img, (ksize, ksize), sigma) over the last two axes,
+    with BORDER_REFLECT_101 (``F.pad``'s ``reflect``): two 1-D passes."""
+    k = torch.as_tensor(gaussian_kernel_1d(ksize, sigma), dtype=img.dtype, device=img.device)
+    pad = ksize // 2
+    h, w = img.shape[-2:]
+    x = F.pad(img.reshape(-1, h, w), (0, 0, pad, pad), mode="reflect")
+    x = sum(k[t] * x[:, t:t + h, :] for t in range(ksize))
+    x = F.pad(x, (pad, pad, 0, 0), mode="reflect")
+    x = sum(k[t] * x[:, :, t:t + w] for t in range(ksize))
+    return x.reshape(img.shape)

@@ -1,0 +1,234 @@
+"""Training and eval steps: loss, optimizer, schedule, step factories
+(mirrors ``pixelwiseregression_tpu/train/loop.py``).
+
+The loss is the reference's, per stage:
+
+  L_h = lambda_h * mean_{B,J} sum_{HW} (hm - hm*)^2
+  L_d = lambda_d * mean_{B,J} sum_{HW} (dm - dm*)^2
+  L_u = mean_{B,J} sum_3 (uvd - uvd*)^2
+  total = sum over stages of alpha * L_u + (1 - alpha) * (L_h + L_d)
+
+(the default alpha=1 zeroes the auxiliary losses: a reference quirk kept
+for parity). Samples that are invalid (a failed augmentation) or padding
+(``weight`` 0) are masked out, and the mean divides by the number of the
+others. AdamW or SGD with the reference's StepLR, applied per step: the
+step-``i`` update uses ``lr * lr_decay ** ((i // steps_per_epoch) //
+decay_epoch)``, as optax evaluates its schedule before the update.
+
+A step takes a raw batch already on the device (frames + crop integers,
+as ``utils/synth.py`` and the host records give them), runs the on-device
+preprocessing without autograd, then forward, backward and the optimizer
+step. The eval step computes the mean 3-D joint error on the device and
+returns only small tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from pixelwiseregression_tpu_torch.core.camera import Camera, recover_uvd
+from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    lambda_h: float = 1.0
+    lambda_d: float = 0.01
+    alpha: float = 1.0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its params and its norms' running statistics), the
+    optimizer, the per-step schedule and the count of steps taken."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    step: int = 0
+
+
+def make_optimizer(params, opt: str = "adam", lr: float = 1e-3, beta1: float = 0.9,
+                   beta2: float = 0.999, weight_decay: float = 0.0, lr_decay: float = 0.2,
+                   decay_epoch: float = 15, steps_per_epoch: int = 1):
+    """AdamW / SGD with the reference's StepLR as a per-step ``LambdaLR``;
+    returns ``(optimizer, scheduler)``. Call ``scheduler.step()`` after each
+    ``optimizer.step()``.
+
+    ``weight_decay`` is passed explicitly: ``torch.optim.AdamW`` would
+    default to 0.01, the JAX package to 0. SGD has momentum ``beta1`` and
+    adds ``weight_decay * param`` to the gradient before it, as the JAX
+    package's ``add_decayed_weights`` chain does.
+    """
+    params = list(params)
+    if opt == "adam":
+        optimizer = torch.optim.AdamW(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
+                                      weight_decay=weight_decay)
+    elif opt == "sgd":
+        optimizer = torch.optim.SGD(params, lr=lr, momentum=beta1, weight_decay=weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer {opt}")
+
+    def factor(step: int) -> float:
+        return lr_decay ** ((step // steps_per_epoch) // decay_epoch)
+
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+
+
+def create_train_state(model: nn.Module, **optimizer_kwargs) -> TrainState:
+    """A fresh state around ``model`` (``make_optimizer``'s keyword arguments).
+
+    Sets ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` to False, as ``Predictor``
+    does, so that an f32 model trains in f32 on the card.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    optimizer, scheduler = make_optimizer(model.parameters(), **optimizer_kwargs)
+    return TrainState(model, optimizer, scheduler)
+
+
+def stage_losses(results, targets: Dict[str, torch.Tensor], lambda_h: float, lambda_d: float,
+                 sample_weight: Optional[torch.Tensor] = None):
+    """Per-stage ``(l_h, l_d, l_u)`` scalar losses, reference reductions.
+
+    ``results``: the model's per-stage (heatmaps, depthmaps ``[B, J, H, W]``,
+    uvd ``[B, J, 3]``); ``targets``: heatmaps and dmaps ``[B, J, H, W]``
+    (NCHW, the model's layout), uvd ``[B, J, 3]``. ``sample_weight`` ``[B]``
+    (0/1) masks samples out; the mean then divides by the number of the
+    others (at least 1).
+    """
+    hm_t = targets["heatmaps"].to(torch.float32)
+    dm_t = targets["dmaps"].to(torch.float32)
+    uvd_t = targets["uvd"].to(torch.float32)
+    if sample_weight is None:
+        sw = torch.ones(hm_t.shape[0], dtype=torch.float32, device=hm_t.device)
+    else:
+        sw = sample_weight.to(torch.float32)
+    denom_bj = torch.clamp_min(torch.sum(sw), 1.0) * hm_t.shape[1]
+    sw = sw[:, None]
+
+    out = []
+    for heatmaps, depthmaps, uvd in results:
+        hm = heatmaps.to(torch.float32)
+        dm = depthmaps.to(torch.float32)
+        l_h = lambda_h * torch.sum(torch.sum((hm - hm_t) ** 2, dim=(2, 3)) * sw) / denom_bj
+        l_d = lambda_d * torch.sum(torch.sum((dm - dm_t) ** 2, dim=(2, 3)) * sw) / denom_bj
+        l_u = torch.sum(torch.sum((uvd.to(torch.float32) - uvd_t) ** 2, dim=2) * sw) / denom_bj
+        out.append((l_h, l_d, l_u))
+    return out
+
+
+def total_loss(every_loss, alpha: float):
+    loss = 0.0
+    for l_h, l_d, l_u in every_loss:
+        loss = loss + alpha * l_u + (1.0 - alpha) * (l_h + l_d)
+    return loss
+
+
+def _model_inputs(data):
+    """NHWC one-channel img, label_img and mask -> NCHW. ``unsqueeze`` gives
+    plain NCHW strides (a permute would read as channels_last to cuDNN)."""
+    return [data[k][..., 0].unsqueeze(1) for k in ("img", "label_img", "mask")]
+
+
+def _targets(data):
+    return {"heatmaps": data["heatmaps"].permute(0, 3, 1, 2),
+            "dmaps": data["dmaps"].permute(0, 3, 1, 2), "uvd": data["uvd"]}
+
+
+def _stacked(every):
+    return torch.stack([torch.stack(list(e)) for e in every]).detach()
+
+
+def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
+                    augment: bool = True):
+    """Build the train step ``step(state, batch, generator=None, draws=None, events=None)``.
+
+    The step takes a raw batch (frames + crop integers, and ``joints``) and
+    preprocesses it on the device, with the augmentation draws from
+    ``draws`` or ``generator`` (``data.preprocess.preprocess_batch``). An
+    optional ``weight`` ``[B]`` masks padded samples.
+
+    It runs the model in train mode, takes one optimizer and schedule step,
+    leaves this step's gradients in the params' ``.grad``, and returns
+    ``{"loss": [], "stage_losses": [stages, 3] (h, d, u)}`` on the device.
+    ``events``, five ``torch.cuda.Event``s, are recorded before the
+    preprocess, after it, after the forward and loss, after the backward and
+    after the optimizer step, so a caller can time the step's parts.
+    """
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None,
+             events: Optional[Sequence[torch.cuda.Event]] = None):
+        def mark(i):
+            if events is not None:
+                events[i].record()
+
+        mark(0)
+        with torch.no_grad():
+            data = preprocess_batch(batch, preprocess_cfg, augment=augment,
+                                    generator=generator, draws=draws)
+        sw = data["valid"].to(torch.float32)
+        if "weight" in batch:
+            sw = sw * batch["weight"].to(torch.float32)
+        mark(1)
+
+        model = state.model.train()
+        results = model(*_model_inputs(data))
+        every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d, sw)
+        loss = total_loss(every, loss_cfg.alpha)
+        mark(2)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mark(3)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        mark(4)
+        return {"loss": loss.detach(), "stage_losses": _stacked(every)}
+
+    return step
+
+
+def make_eval_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
+                   camera: Camera):
+    """Build the eval step ``step(state, batch)``: losses and the per-stage
+    sum of the per-sample mean 3-D joint error (mm), weighted by ``weight``
+    (1 real, 0 padding), computed on the device in eval mode.
+
+    Returns ``{"loss", "stage_losses" [stages, 3], "err_sum_mm" [stages],
+    "count"}``; the mean error of stage s is ``err_sum_mm[s] / count``.
+    """
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model.eval()
+        with torch.no_grad():
+            data = preprocess_batch(batch, preprocess_cfg)
+            weight = batch.get("weight")
+            if weight is None:
+                weight = torch.ones(data["img"].shape[0], device=data["img"].device)
+            weight = weight.to(torch.float32)
+            results = model(*_model_inputs(data))
+            every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d,
+                                 weight)
+            loss = total_loss(every, loss_cfg.alpha)
+
+            box = data["box_size"].to(torch.float32)
+            com = data["com"].to(torch.float32)
+            cube = data["cube"].to(torch.float32)
+            true_xyz = camera.uvd2xyz(recover_uvd(data["uvd"].to(torch.float32), box, com, cube))
+            err_sums = []
+            for _, _, uvd in results:
+                xyz = camera.uvd2xyz(recover_uvd(uvd.to(torch.float32), box, com, cube))
+                err = torch.sqrt(torch.sum((xyz - true_xyz) ** 2, dim=-1))  # [B, J]
+                err_sums.append(torch.sum(torch.mean(err, dim=-1) * weight))
+        return {"loss": loss, "stage_losses": _stacked(every),
+                "err_sum_mm": torch.stack(err_sums), "count": torch.sum(weight)}
+
+    return step

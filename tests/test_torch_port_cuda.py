@@ -1,6 +1,6 @@
-"""The port's CUDA kernel on the card: the soft-argmax decoder kernel vs its
-plain PyTorch version, the wrapper's checks, and the Predictor through the
-kernel.
+"""The port's CUDA kernels on the card: the soft-argmax decoder's forward
+(K1) and backward (K2) kernels vs their plain PyTorch versions, the
+wrappers' checks, the Predictor through K1 and a train step through both.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, draw_augmentation
 from pixelwiseregression_tpu_torch.data.sources import SPECS
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 from pixelwiseregression_tpu_torch.ops import cuda_softargmax as tcuda
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
 from pixelwiseregression_tpu_torch.serve import Predictor
+from pixelwiseregression_tpu_torch.train.loop import LossConfig, create_train_state, make_train_step
 from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +93,58 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         tcuda.decode_flat(x, dm, label.cpu(), mask, wt, 8, 8)
 
 
+def _loss(hm, uvd, use_heatmaps=True):
+    """Touches both outputs with asymmetric weights, as tests/test_pallas_decoder.py does."""
+    loss = torch.sum(uvd ** 2)
+    if use_heatmaps:
+        loss = loss + 0.1 * torch.sum(hm * hm) + torch.sum(hm[:, 0])
+    return loss
+
+
+def _grads(decode, rows, use_heatmaps):
+    leaves = [t.clone().requires_grad_(i != 3) for i, t in enumerate(rows)]
+    hm, uvd = decode(*leaves)
+    _loss(hm, uvd, use_heatmaps).backward()
+    return [leaves[i].grad for i in (0, 1, 2, 4)]
+
+
+@pytest.mark.parametrize("use_heatmaps", [True, False])
+@pytest.mark.parametrize("shape", [(32, 14, 64, 64), (128, 14, 64, 64), (3, 21, 24, 40)])
+def test_backward_kernel_matches_plain_autograd(device, shape, use_heatmaps):
+    """K2 through the autograd.Function vs autograd of the plain decoder, f32:
+    rtol 1e-4, atol 1e-6 (the tolerances of tests/test_pallas_decoder.py).
+    Sample 0 has an all-zero mask (den = 1e-14), which must give finite
+    zeros; without the heatmap term the heatmap cotangent arrives as
+    materialized zeros. The third shape's map width is not a power of two."""
+    b, j, h, w = shape
+    x, dm, label, mask, wt = _rows(device, torch.float32, b, j, h, w, seed=12)
+    mask[0] = 0.0
+    before = (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES)
+    got = _grads(lambda *a: tcuda.decode_flat(*a, h, w), (x, dm, label, mask, wt), use_heatmaps)
+    torch.cuda.synchronize()
+    assert (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = _grads(lambda *a: tsa.soft_argmax_decode_flat(*a, h, w), (x, dm, label, mask, wt),
+                  use_heatmaps)
+    for name, g, r in zip(("dx", "ddm", "dlabel", "dw"), got, want):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6, msg=name)
+    assert float(got[1][0].abs().max()) == 0.0 and float(got[2][0].abs().max()) == 0.0
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
+    x, dm, label, mask, wt = _rows(device, torch.bfloat16, 2, 4, 8, 8)
+    with pytest.raises(TypeError, match="f32"):
+        tcuda.decode_flat(x.requires_grad_(True), dm, label, mask, wt, 8, 8, hm_dtype=torch.bfloat16)
+    x, dm, label, mask, wt = _rows(device, torch.float32, 2, 4, 8, 8)
+    g_hm = torch.zeros_like(x)
+    with pytest.raises(ValueError, match="cotangents"):
+        tcuda.decode_flat_backward(x, dm, label, mask, wt, g_hm, torch.zeros(2, 3, 4, device=device),
+                                   8, 8)
+    with pytest.raises(TypeError, match="f32"):
+        bf = [t.to(torch.bfloat16) for t in (x, dm, label, mask)]
+        tcuda.decode_flat_backward(*bf, wt, g_hm, torch.zeros(2, 4, 3, device=device), 8, 8)
+
+
 def test_predictor_through_the_kernel_matches_plain_decoder(device):
     """A small bf16 Predictor on the card: decoder='cuda' launches the kernel
     once per stage and agrees with decoder='torch' within 1e-3 normalized
@@ -139,3 +193,47 @@ def test_f32_predictor_on_the_card_matches_the_cpu(device):
     want = host.predict(raw["frame"], raw["com"])
     for k in ("uvd", "xyz"):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=2e-2)
+
+
+def _train_once(device, decoder, state_dict, batch, draws):
+    model = PixelwiseRegression(14, stage=2, features=16, level=2, norm_method="instance",
+                                decoder=decoder).to(device)
+    model.load_state_dict(state_dict)
+    state = create_train_state(model, lr=1e-3, steps_per_epoch=100)
+    spec = SPECS["NYU"]
+    cfg = PreprocessConfig(fx=spec.camera.fx, fy=spec.camera.fy, halfu=spec.camera.halfu,
+                           halfv=spec.camera.halfv, image_size=64, label_size=32,
+                           using_rotation=True, using_scale=True, using_shift=True)
+    metrics = make_train_step(cfg, LossConfig(alpha=0.5))(state, batch, draws=draws)
+    return metrics, {n: p.grad.double() for n, p in model.named_parameters()}
+
+
+def test_train_step_through_the_kernels_matches_plain_decoder(device):
+    """One f32 train step of a small model (two stages) through K1 + K2
+    against decoder='torch', same weights, batch and draws: each stage
+    launches K1 and K2 once; loss rtol 1e-4; the last stage's output convs
+    and temperature (between the loss and the last ReLU) within 1e-3
+    relative; the whole gradient within 5e-2 relative (ReLU inputs near zero
+    may flip between two roundings of the forward, see
+    tests/test_torch_port_train.py)."""
+    spec = SPECS["NYU"]
+    torch.manual_seed(2)
+    state_dict = PixelwiseRegression(14, stage=2, features=16, level=2,
+                                     norm_method="instance").state_dict()
+    raw = make_synthetic_raw_batch(4, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=150.0, com_z=450.0, seed=3)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    draws = draw_augmentation(4, torch.Generator(device=device).manual_seed(4), device)
+    before = (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES)
+    got, g_k = _train_once(device, "cuda", state_dict, batch, draws)
+    torch.cuda.synchronize()
+    assert (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    want, g_p = _train_once(device, "torch", state_dict, batch, draws)
+    assert torch.isfinite(got["loss"])
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-4, atol=0)
+    for name in ("stages.1.plane_regression.w", "stages.1.plane_regression.conv.9.weight",
+                 "stages.1.depth_regression.conv.9.weight"):
+        assert float((g_k[name] - g_p[name]).norm() / g_p[name].norm()) <= 1e-3, name
+    whole = (torch.cat([(g_k[n] - g_p[n]).flatten() for n in g_p]).norm()
+             / torch.cat([g_p[n].flatten() for n in g_p]).norm())
+    assert float(whole) <= 5e-2, float(whole)

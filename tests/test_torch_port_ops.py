@@ -1,5 +1,6 @@
-"""PyTorch port vs the JAX package: camera, host records, image ops,
-preprocessing and the soft-argmax decoder.
+"""PyTorch port vs the JAX package: camera, host records, image ops, label
+synthesis, preprocessing (with the JAX package's own augmentation draws) and
+the soft-argmax decoder with its gradients.
 
 Inputs are made with numpy from a seed and go through the JAX function and
 its port counterpart; each comparison states its tolerance. The JAX Pallas
@@ -204,9 +205,162 @@ def test_preprocess_test_only_matches(dataset):
 
 
 def test_preprocess_training_branches_wait_for_the_training_port():
-    cfg = tpre.PreprocessConfig(fx=1.0, fy=1.0, halfu=1.0, halfv=1.0)
-    with pytest.raises(NotImplementedError):
-        tpre.preprocess_batch({}, cfg, test_only=False)
+    """The name is kept from when the training branches raised. They run
+    now; what waits is an augmented call without its draws: it needs
+    ``draws`` or a generator and raises without either."""
+    batch = {k: _t(v[:2]) for k, v in _train_batch().items()}
+    cfg = tpre.PreprocessConfig(**_CAM, using_rotation=True)
+    with pytest.raises(ValueError, match="draws or a generator"):
+        tpre.preprocess_batch(batch, cfg, augment=True)
+    gen = torch.Generator().manual_seed(0)
+    out = tpre.preprocess_batch(batch, cfg, augment=True, generator=gen)
+    assert out["heatmaps"].shape == (2, 64, 64, 14) and out["valid"].dtype == torch.bool
+
+
+@pytest.mark.parametrize("angle,scale", [(0.0, 1.0), (23.7, 1.13), (-29.2, 0.84)])
+def test_rotation_matrix_inverse_matches(angle, scale):
+    """Same f32 trig (another libm): rtol 1e-6, atol 1e-5 (the centre terms ~64)."""
+    want = np.asarray(jimg.rotation_matrix_inverse(jnp.float32(angle), jnp.float32(scale),
+                                                    jnp.float32(64), jnp.float32(64)))
+    got = timg.rotation_matrix_inverse(torch.tensor([angle]), torch.tensor([scale]), 64.0, 64.0)
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w", [(40, 40), (28, 44)])
+def test_warp_affine_matches(h, w):
+    """The port's 4-tap gather vs the JAX default (hat functions through a
+    matmul, method="dot") on a depth-like image with zero background:
+    atol 1e-4 on values up to ~100, and the same zero pattern."""
+    rng = np.random.RandomState(12)
+    img = rng.uniform(-100, 100, (3, h, w)).astype(np.float32)
+    img[:, :6] = 0.0
+    img[:, :, 30:] = 0.0
+    angles = np.array([0.0, 17.3, -28.9], np.float32)
+    scales = np.array([1.0, 0.87, 1.16], np.float32)
+    minv = timg.rotation_matrix_inverse(_t(angles), _t(scales), w / 2, h / 2)
+    got = timg.warp_affine_inverse(_t(img), minv).numpy()
+    for i in range(3):
+        want = np.asarray(jimg.warp_affine_inverse(jnp.asarray(img[i]),
+                                                   jnp.asarray(minv[i].numpy())))
+        np.testing.assert_allclose(got[i], want, rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(got[i] != 0, want != 0)
+
+
+@pytest.mark.parametrize("ksize,sigma", [(7, 1.5), (5, 0.0)])
+def test_gaussian_blur_matches(ksize, sigma):
+    """The kernel is the same float64 numpy: exact. The blur: atol 1e-6."""
+    np.testing.assert_array_equal(timg.gaussian_kernel_1d(ksize, sigma),
+                                  jimg.gaussian_kernel_1d(ksize, sigma))
+    img = np.random.RandomState(13).rand(2, 3, 16, 16).astype(np.float32)
+    want = np.asarray(jimg.gaussian_blur(jnp.asarray(img), ksize, sigma))
+    np.testing.assert_allclose(timg.gaussian_blur(_t(img), ksize, sigma).numpy(), want,
+                               rtol=0, atol=1e-6)
+
+
+def test_splat_heatmap_matches_with_wrap_and_invalid_joints():
+    """Joints inside, on the last valid index, at negative indices (numpy's
+    wrap-around: valid) and at >= size or < -size (invalid, zero map):
+    valid exact, heatmaps atol 1e-6."""
+    u = np.array([10.3, 30.0, -3.6, 31.2, 5.5, -33.7, 62.0, 12.25], np.float32)
+    v = np.array([20.7, 30.99, 7.1, -0.4, 32.0, 1.0, 4.0, -31.5], np.float32)
+    size = 32
+    got_hm, got_valid = theat.splat_heatmap(size, _t(u), _t(v))
+    for i in range(len(u)):
+        want_hm, want_valid = jheat.splat_heatmap(size, u[i], v[i])
+        assert bool(got_valid[i]) == bool(want_valid), i
+        np.testing.assert_allclose(got_hm[i].numpy(), np.asarray(want_hm), rtol=0, atol=1e-6)
+    assert got_valid.tolist() == [True, True, True, False, False, False, False, True]
+
+
+def test_synthesize_labels_matches():
+    """Blurred heatmaps atol 1e-6, depth maps atol 1e-5 (values ~50), mask
+    and valid exact."""
+    rng = np.random.RandomState(14)
+    b, j, s = 2, 5, 32
+    uv = rng.uniform(-4, 34, (b, j, 2)).astype(np.float32)
+    depth = rng.uniform(-60, 60, (b, j)).astype(np.float32)
+    label = rng.uniform(-50, 50, (b, s, s)).astype(np.float32)
+    label[:, :, :8] = 0.0
+    got = theat.synthesize_labels(_t(uv), _t(depth), _t(label), s, 7, 1.5)
+    for i in range(b):
+        want = jheat.synthesize_labels(jnp.asarray(uv[i]), jnp.asarray(depth[i]),
+                                       jnp.asarray(label[i]), s, 7, 1.5)
+        np.testing.assert_allclose(got[0][i].numpy(), np.asarray(want[0]), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[1][i].numpy(), np.asarray(want[1]), rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got[2][i].numpy(), np.asarray(want[2]))
+        np.testing.assert_array_equal(got[3][i].numpy(), np.asarray(want[3]))
+
+
+_CAM = dict(fx=588.03, fy=587.07, halfu=320.0, halfv=240.0)
+
+
+def _train_batch(n=6, seed=0):
+    """Synthetic NYU-shaped raw frames with joints; joint edits make some
+    samples fail: sample 1 has a joint 190 px right of the centre (valid
+    when clean, out of the label map once scaled up), sample 2 one far below
+    (invalid on every path), sample 4 one 230 px left (a negative splat
+    index that wraps around: valid)."""
+    raw = jsynth.make_synthetic_raw_batch(n, 480, 640, 14, fx=_CAM["fx"], fy=_CAM["fy"],
+                                          cube=150.0, com_z=450.0, seed=seed)
+    j = raw["joints"]
+    j[1, 3, 0] = 320.0 + 190.0
+    j[2, 5, 1] += 400.0
+    j[4, 0, 0] = 320.0 - 230.0
+    return raw
+
+
+def jax_draws(key, b):
+    """The augmentation draws of the JAX package's ``preprocess_batch`` for
+    ``key``, as the port's ``draws`` argument: per sample, the key split as
+    ``_process_one`` splits it."""
+    out = {"angle": [], "scale": [], "shift": [], "flip": []}
+    for k in jax.random.split(key, b):
+        ka, ks, kh, kf = jax.random.split(k, 4)
+        out["angle"].append(jax.random.uniform(ka, (), jnp.float32, -30.0, 30.0))
+        out["scale"].append(jax.random.uniform(ks, (), jnp.float32, 0.8, 1.2))
+        out["shift"].append(jax.random.uniform(kh, (2,), jnp.float32, -5.0, 5.0))
+        out["flip"].append(jax.random.uniform(kf, ()) < 0.5)
+    return {k: torch.from_numpy(np.stack([np.asarray(x) for x in v])) for k, v in out.items()}
+
+
+_AUG = dict(using_rotation=True, using_scale=True, using_shift=True)
+_PRE_CONFIGS = {
+    "augment_off": (_AUG, False),
+    "default": (_AUG, True),
+    "flip_strict_quirks": (dict(_AUG, using_flip=True), True),
+    "flip_no_strict_quirks": (dict(_AUG, using_flip=True, strict_quirks=False), True),
+    "aug_fallback_drop": (dict(_AUG, aug_fallback="drop"), True),
+}
+
+
+@pytest.mark.parametrize("name", list(_PRE_CONFIGS))
+def test_preprocess_batch_matches_with_jax_draws(name):
+    """The training path with the JAX package's own draws on two keys:
+    mask and valid identical; img, label_img and dmaps atol 1e-5 (values are
+    normalized by the cube), heatmaps and uvd atol 1e-6; com, box_size and
+    cube exact. Key 2's draws scale sample 1 out of the label map, so the
+    drop config must lose it there."""
+    kw, augment = _PRE_CONFIGS[name]
+    raw = _train_batch()
+    jcfg, tcfg = jpre.PreprocessConfig(**_CAM, **kw), tpre.PreprocessConfig(**_CAM, **kw)
+    valids = []
+    for seed in (0, 2):
+        key = jax.random.PRNGKey(seed)
+        want = jpre.preprocess_batch({k: jnp.asarray(v) for k, v in raw.items()}, key, jcfg,
+                                     augment=augment)
+        got = tpre.preprocess_batch({k: _t(v) for k, v in raw.items()}, tcfg, augment=augment,
+                                    draws=jax_draws(key, len(raw["frame"])))
+        assert got.keys() == want.keys()
+        for k in ("mask", "valid", "com", "box_size", "cube"):
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+        for k, atol in (("img", 1e-5), ("label_img", 1e-5), ("dmaps", 1e-5),
+                        ("heatmaps", 1e-6), ("uvd", 1e-6)):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=atol,
+                                       err_msg=k)
+        valids.append(got["valid"].tolist())
+    assert not valids[0][2]
+    if name == "aug_fallback_drop":
+        assert valids[0][1] and not valids[1][1]
 
 
 # --------------------------------------------------------------------------- #
@@ -292,12 +446,42 @@ def test_cuda_wrapper_runs_plain_version_on_cpu_tensors():
 
 
 def test_cuda_wrapper_raises_when_an_input_requires_grad():
-    args = [_t(a) for a in _decoder_inputs(14, b=1, h=16, w=16)]
+    """The name is kept from when every differentiable call raised. Now
+    differentiable calls run (K2 is their backward) but take f32 maps only:
+    bf16 maps that require grad raise (the JAX package's custom VJP is f32
+    only); without grad mode no graph is recorded and bf16 runs."""
+    args = [_t(a).to(torch.bfloat16) for a in _decoder_inputs(14, b=1, h=16, w=16)[:4]]
+    w = _t(_decoder_inputs(14, b=1, h=16, w=16)[4])
     args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        tcuda.soft_argmax_decode_cuda(*args)
-    with torch.no_grad():  # no graph is recorded, so no backward is needed
-        tcuda.soft_argmax_decode_cuda(*args)
+    with pytest.raises(TypeError, match="f32"):
+        tcuda.soft_argmax_decode_cuda(*args, w, fast_boundary=True)
+    with torch.no_grad():
+        tcuda.soft_argmax_decode_cuda(*args, w, fast_boundary=True)
+
+
+def test_decoder_autograd_matches_pallas_gradients():
+    """The autograd.Function (K1 forward, K2 backward; their plain versions
+    on CPU tensors) vs jax.grad through the Pallas custom VJP in interpret
+    mode, with the loss of tests/test_pallas_decoder.py and an all-zero mask
+    on sample 0: rtol 1e-4, atol 1e-6, the tolerances of that test."""
+    logits, dm, label, mask, wt = _decoder_inputs(14, b=2, seed=15)
+    mask[0] = 0.0
+
+    def jloss(*a):
+        hm, uvd = soft_argmax_decode_pallas(*a)
+        return jnp.sum(uvd ** 2) + 0.1 * jnp.sum(hm * hm) + jnp.sum(hm[..., 0])
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 4))(*(jnp.asarray(a) for a in
+                                                   (logits, dm, label, mask, wt)))
+    leaves = [_t(a).requires_grad_(i != 3) for i, a in enumerate((logits, dm, label, mask, wt))]
+    hm, uvd = tcuda.soft_argmax_decode_cuda(*leaves)
+    (torch.sum(uvd ** 2) + 0.1 * torch.sum(hm * hm) + torch.sum(hm[..., 0])).backward()
+    for name, i, w_ in zip(("logits", "depthmaps", "label", "w"), (0, 1, 2, 4), want):
+        g = leaves[i].grad.numpy()
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, np.asarray(w_), rtol=1e-4, atol=1e-6, err_msg=name)
+    assert leaves[3].grad is None  # the mask gets no gradient
+    assert np.abs(leaves[1].grad[0].numpy()).max() == 0.0
 
 
 # --------------------------------------------------------------------------- #
@@ -321,4 +505,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                        timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split("MODULES")[1]) >= 19  # 13 modules + 6 subpackages
+    assert int(r.stdout.split("MODULES")[1]) >= 21  # 14 modules + 7 subpackages
