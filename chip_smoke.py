@@ -5,8 +5,9 @@ Run from the root of the repository on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds both soft-argmax decoder kernels from csrc/ with one nvcc call,
-then:
+It builds every kernel of the port from csrc/ with one nvcc call (K1 and
+K2, the soft-argmax decoder's forward and backward; K3, the fused conv +
+instance-norm unit; K4, the whole hourglass), then:
 
 1. K1, the forward kernel, at the serving and training shapes
    ([32|128|256, 14, 64*64], f32 and bf16-in/bf16-heatmap), against its
@@ -27,7 +28,18 @@ then:
    same weights, batch and draws; steps/s, frames/s and the step's parts
    are timed for both decoders in turns; one eval step reports mean mm;
 6. the CLI's f32 default (batch 32) takes three steps through the kernels;
-7. one f32 train step of a small model on the card against the CPU.
+7. one f32 train step of a small model on the card against the CPU;
+8. K3 against its plain version at batch 256, bf16, for every unit kind
+   that the unit engine launches at full width (and one f32 case), with
+   cuDNN's conv alone at the same shape as a partial yardstick;
+9. K4 against its plain version at [256, 64, 64, 128] bf16, level 4;
+10. both fused inference engines end to end at full width (NYU: 14
+   joints, 2 stages, 128 features, level 4, instance norm, bf16, batch 64)
+   on weights made from a seed: the unit engine through 32 K3 and 2 K1
+   launches per forward, the fused engine through 2 K4 and 2 K1, each
+   against the same engine on the kernels' plain versions and against the
+   model's own forward, and frames/s of all three;
+11. a small f32 model with both engines on the card against the CPU.
 
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
@@ -35,12 +47,17 @@ quotes.
 
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
-the line before it lists the kernels with their launches on the main path.
+the line before it lists the kernels with their launches on each path
+(serve, train, unit_engine, fused_engine), their times, their plain
+versions' and a library call's, and their bounds: the larger of the bytes
+they must move over 3.35 TB/s and their operations over the peak rate of
+their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), for an H100 SXM.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -70,6 +87,35 @@ TRAIN_STEPS = 10
 # zero may flip sign between the two roundings and move whole entries
 LOSS_GAP_BOUND = 1e-3
 GRAD_GAP_BOUND = 1e-1
+# the roofline of an H100 SXM (NVIDIA's data sheet, dense)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+UNIT_BATCH = 256    # K3 and K4 alone, at bench.py's batch
+ENGINE_BATCH = 64   # the engines end to end
+FEATURES, LEVEL = 128, 4
+# K3 vs its plain version, bf16: at most this many bf16 ulps of the
+# output's largest magnitude (both accumulate in f32 in another order; a
+# flip of one rounding moves the statistics of what follows)
+UNIT_ULPS = 2.0
+# K4 vs its plain version: f32 within 1e-4 of the output's scale (the same
+# arithmetic in another order); bf16 within the plain version's own
+# bf16-vs-f32 gap, both as relative L2 norms. K4 applies each norm in bf16
+# (x*a and + b rounded apart), so one flipped rounding early in a sample
+# moves the whole sample by a few ulps: a per-element bound cannot hold
+# (the first run read 15.25 ulps of the scale against the 8 predicted)
+# the engines, kernels vs the same engine on the plain versions, per-stage
+# uvd: 2e-2 (the JAX bf16 engine tests' bound, tests/test_infer_engine.py:
+# 77-80) or twice the plain engine's own bf16-vs-f32 gap, whichever is
+# larger. Written before the first run: expected ~1e-2 at stage 1 and a
+# few 1e-2 at stage 2 (random weights: the instance norms amplify one
+# flipped rounding; a 2-stage level-2 model on the card parted by 0.065)
+ENGINE_GAP_BOUND = 2e-2
+# each engine vs the model's own forward, stage 1: 5e-2 (the bound of
+# tests/test_infer_engine.py:117-120) or twice the plain engine's own
+# bf16-vs-f32 gap; stage 2 is printed, not bounded. Expected ~2e-2 (unit)
+# and ~5e-2 (fused, whose K4 applies its norms in bf16) at stage 1, and
+# 0.05-0.3 at stage 2
+MODEL_GAP_BOUND = 5e-2
 # --profile: device time by kernel name, lowercased; the first group whose
 # substring a name holds takes it, the rest is "other"
 PROFILE_GROUPS = (
@@ -603,6 +649,303 @@ def phase_profile(device, steps=3):
         print(f"profile kernel {dur / 1e3 / steps:.3f} ms/step in {n / steps:.0f} ops: {name[:160]}")
 
 
+def _bound(flops, nbytes, kind):
+    """The least time (ms) an H100 SXM could take, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _decoder_bounds(b):
+    """K1 and K2 at [b, J, H*W] f32: each map element read or written once;
+    ~16 f32 operations per element forward (three passes), ~30 backward."""
+    n, hw = b * J * H * W, b * H * W
+    fwd = _bound(16 * n, 4 * (3 * n + 2 * hw + b * J * 3 + J), "f32")
+    bwd = _bound(30 * n, 4 * (5 * n + 3 * hw + b * J * 6 + J), "f32")
+    return fwd, bwd
+
+
+def _rounding_gap(got, want):
+    """max |got - want| in ulps of the output's largest magnitude, and the
+    share of elements more than one ulp (of their own magnitude) apart;
+    ulps of the tensors' dtype."""
+    bits = 7 if got.dtype == torch.bfloat16 else 23
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ulps = float(err.max()) / 2.0 ** (math.floor(math.log2(float(w.abs().max()))) - bits)
+    own = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)))
+                     - bits)
+    return float(err.max()), ulps, float((err > own).float().mean())
+
+
+# the unit kinds of the unit engine at full width: name, H = W, k, C, Co,
+# prologue, epilogue, skip (models/infer_engine.py::make_unit_fused_apply)
+UNIT_KINDS = (
+    ("stem_conv_1", 2 * H, 3, 32, 64, True, True, False),
+    ("stem_conv_2", 2 * H, 3, 64, 128, False, True, False),
+    ("resblock_conv_0", H, 1, 128, 64, True, False, False),
+    ("resblock_conv_1", H, 3, 64, 64, True, False, False),
+    ("resblock_conv_2", H, 1, 64, 128, True, False, True),
+    ("head_conv", H, 3, 128, 128, False, True, False),
+)
+
+
+def phase_fused_units(device):
+    """K3 vs its plain version for every unit kind, batch 256, bf16, and the
+    head unit in f32; cuDNN's conv of the same shape (bias included, nothing
+    else) times as a partial yardstick: no one PyTorch call computes a unit."""
+    import torch.nn.functional as F
+
+    from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    cases = {}
+    for kind, dtype in [(k, torch.bfloat16) for k in UNIT_KINDS] + [(UNIT_KINDS[-1], torch.float32)]:
+        name, hw, k, c, co, pro, epi, with_skip = kind
+        x = (1.0 + randn(UNIT_BATCH, hw, hw, c)).to(dtype)
+        unit = {"kernel": randn(k, k, c, co) * (2.0 / (k * k * c)) ** 0.5, "bias": 0.1 * randn(co)}
+        if pro:
+            unit["pro"] = (1.0 + 0.1 * randn(c), 0.1 * randn(c))
+        if epi:
+            unit["epi"] = (1.0 + 0.1 * randn(co), 0.1 * randn(co))
+        skip = randn(UNIT_BATCH, hw, hw, co).to(dtype) if with_skip else None
+        w_lib = unit["kernel"].permute(3, 2, 0, 1).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        b_lib, x_lib = unit["bias"].to(dtype), x.permute(0, 3, 1, 2)
+
+        def kernel():
+            return cf.fused_chain(x, [unit], skip=skip)
+
+        def plain():
+            return cf.fused_chain_plain(x, [unit], skip=skip)
+
+        def library():
+            return F.conv2d(x_lib, w_lib, b_lib, padding=k // 2)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.isfinite(got.float()).all(), name
+        err, ulps, share = _rounding_gap(got, want)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        if dtype == torch.bfloat16:
+            assert ulps <= UNIT_ULPS, f"{name}: {ulps:.2f} bf16 ulps apart"
+        else:
+            assert err <= 1e-4 * float(want.abs().max()), f"{name} f32: {err:.3e}"
+        ms, lib_ms = _median_ms(kernel), _median_ms(library)
+        plain_ms = _median_ms(plain, runs=3, iters=5)
+        es = x.element_size()
+        bound, by = _bound(2 * UNIT_BATCH * hw * hw * k * k * c * co,
+                           es * (UNIT_BATCH * hw * hw * (c + co + (co if with_skip else 0))
+                                 + k * k * c * co), tag)
+        print(f"kernel fused_chain {name} [{UNIT_BATCH},{hw},{hw},{c}]->{co} k={k} {tag}: "
+              f"max_abs_err={err:.3e} ({ulps:.2f} ulps of the scale, {share:.2e} of elements "
+              f"> 1 ulp apart) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} (cuDNN conv alone, a partial yardstick) "
+              f"bound_ms={bound:.5f} ({by})")
+        cases[(name, tag)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                              "shape": [UNIT_BATCH, hw, hw, c, co, k]}
+    return cases
+
+
+def _hourglass_pixels(side, level):
+    """Pixels summed over the ResBlocks of a level-`level` hourglass at side x side."""
+    inner = _hourglass_pixels(side // 2, level - 1) if level > 0 else (side // 2) ** 2
+    return side * side + inner + (side // 2) ** 2
+
+
+def _perturbed_hourglass(seed):
+    """A full-width Hourglass from a seed, norm scales and biases off 1 and 0."""
+    from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass
+
+    torch.manual_seed(seed)
+    hg = Hourglass(FEATURES, LEVEL, "instance")
+    with torch.no_grad():
+        for m in hg.modules():
+            if hasattr(m, "method"):
+                m.weight.add_(0.1 * torch.randn_like(m.weight))
+                m.bias.add_(0.1 * torch.randn_like(m.bias))
+    return hg
+
+
+def phase_hourglass(device):
+    """K4 vs its plain version at [256, 64, 64, 128] bf16, level 4, and the
+    same input in f32."""
+    from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
+
+    stacked = {k: v.to(device) for k, v in
+               ch.stack_hourglass_params(_perturbed_hourglass(SEED + 60), LEVEL).items()}
+    gen = torch.Generator(device=device).manual_seed(SEED + 61)
+    x = torch.randn(UNIT_BATCH, H, W, FEATURES, generator=gen, device=device).to(torch.bfloat16)
+
+    def kernel():
+        return ch.hourglass_fused(x, stacked, LEVEL)
+
+    def plain():
+        return ch.hourglass_fused_plain(x, stacked, LEVEL)
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    got, want = kernel(), plain()
+    got32 = ch.hourglass_fused(x.float(), stacked, LEVEL)
+    want32 = ch.hourglass_fused_plain(x.float(), stacked, LEVEL)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and torch.isfinite(got.float()).all()
+    err32 = float((got32 - want32).abs().max())
+    assert err32 <= 1e-4 * float(want32.abs().max()), f"hourglass f32: {err32:.3e}"
+    err, ulps, share = _rounding_gap(got, want)
+    gap, own = rel_l2(got, want), rel_l2(want, want32)
+    assert gap <= own, f"hourglass bf16: relative L2 gap {gap:.3e} above bf16's own {own:.3e}"
+    ms, plain_ms = _median_ms(kernel, runs=5, iters=10), _median_ms(plain, runs=3, iters=2)
+    c, ch2 = FEATURES, FEATURES // 2
+    per_pixel = 2 * c * ch2 + 2 * 9 * ch2 * ch2 + 2 * ch2 * c
+    weights = ch.num_resblocks(LEVEL) * (c * ch2 + 9 * ch2 * ch2 + ch2 * c)
+    bound, by = _bound(UNIT_BATCH * _hourglass_pixels(H, LEVEL) * per_pixel,
+                       2 * (2 * x.numel() + weights), "bf16")
+    print(f"kernel hourglass_fused [{UNIT_BATCH},{H},{W},{FEATURES}] level {LEVEL} bf16: "
+          f"max_abs_err={err:.3e} ({ulps:.2f} ulps of the scale, {share:.2e} of elements > 1 ulp "
+          f"apart, relative L2 gap {gap:.3e} against bf16's own {own:.3e}; f32 max_abs_err "
+          f"{err32:.3e}) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms=none "
+          f"bound_ms={bound:.5f} ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
+def _engine_model(device, dtype, features=FEATURES, level=LEVEL):
+    from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+
+    torch.manual_seed(SEED + 70)
+    return PixelwiseRegression(J, stage=STAGES, features=features, level=level, kernel_size=3,
+                               norm_method="instance", decoder="cuda", dtype=dtype).to(device).eval()
+
+
+def _engine_inputs(device, b, label, seed):
+    """bench.py's inputs: uniform image and label, a mask of 70% ones."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (rng.rand(b, 1, 2 * label, 2 * label), rng.rand(b, 1, label, label),
+                      rng.rand(b, 1, label, label) > 0.3)]
+
+
+def _forward_fps(fn, inputs, iters=5):
+    for _ in range(2):
+        fn(*inputs)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*inputs)
+    end.record()
+    torch.cuda.synchronize()
+    return iters * inputs[0].shape[0] / (start.elapsed_time(end) / 1e3)
+
+
+def phase_engines(cs, device):
+    """Both engines at full width, bf16, batch 64 (the main paths of this
+    slice); returns each engine's (K3, K4, K1) launches per forward."""
+    from pixelwiseregression_tpu_torch.models.infer_engine import (make_fused_apply,
+                                                                   make_unit_fused_apply)
+    from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
+    from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
+
+    builders = {"unit": make_unit_fused_apply, "fused": make_fused_apply}
+    model = _engine_model(device, torch.bfloat16)
+    inputs = _engine_inputs(device, ENGINE_BATCH, H, SEED + 71)
+    engines = {name: make(model) for name, make in builders.items()}
+    outs, launches = {}, {}
+    for name, fn in engines.items():
+        cs.LAUNCHES = cf.LAUNCHES = ch.LAUNCHES = 0
+        outs[name] = fn(*inputs)
+        torch.cuda.synchronize()
+        launches[name] = (cf.LAUNCHES, ch.LAUNCHES, cs.LAUNCHES)
+    assert launches["unit"] == (32, 0, STAGES), launches
+    assert launches["fused"] == (0, STAGES, STAGES), launches
+
+    plain = {name: make(model, plain=True)(*inputs) for name, make in builders.items()}
+    model32 = _engine_model(device, torch.float32)
+    plain32 = {name: make(model32, plain=True)(*inputs) for name, make in builders.items()}
+    # the plain engine's own sensitivity: one pixel of every sample's image
+    # moved by one bf16 ulp (bf16 bit patterns of values >= 0 step by one)
+    nudged = inputs[0].clone()
+    px = nudged[:, 0, H, W].to(torch.bfloat16)
+    nudged[:, 0, H, W] = (px.view(torch.int16) + 1).view(torch.bfloat16).float()
+    plain_nudged = {name: make(model, plain=True)(nudged, *inputs[1:])
+                    for name, make in builders.items()}
+    with torch.inference_mode():
+        ref = model(*inputs)
+
+    def uvd_gap(a, b):
+        """max |a - b| over uvd, over its uv (normalized map coordinates) and over d."""
+        d = (a - b).abs()
+        return float(d.max()), float(d[..., :2].max()), float(d[..., 2].max())
+
+    for name in engines:
+        for s in range(STAGES):
+            hm, dm, uvd = outs[name][s]
+            assert hm.shape == dm.shape == (ENGINE_BATCH, J, H, W) and uvd.shape == (ENGINE_BATCH, J, 3)
+            assert torch.isfinite(uvd).all() and torch.isfinite(hm).all() and torch.isfinite(dm).all()
+            own = uvd_gap(plain[name][s][2], plain32[name][s][2])[0]
+            gap, gap_uv, gap_d = uvd_gap(uvd, plain[name][s][2])
+            model_gap = uvd_gap(uvd, ref[s][2])[0]
+            nudge = uvd_gap(plain_nudged[name][s][2], plain[name][s][2])[0]
+            print(f"engine {name} NYU stages={STAGES} bf16 batch={ENGINE_BATCH} stage {s + 1}: uvd gap "
+                  f"kernels vs plain {gap:.3e} (uv {gap_uv:.3e}, d {gap_d:.3e}; d's scale "
+                  f"{float(uvd[..., 2].abs().max()):.3e}), vs the model's forward {model_gap:.3e}; "
+                  f"the plain engine's own bf16-vs-f32 gap {own:.3e}, and its move when one "
+                  f"pixel per image moves by one bf16 ulp {nudge:.3e}")
+            assert gap <= max(ENGINE_GAP_BOUND, 2 * own), (name, s, gap, own)
+            if s == 0:
+                assert model_gap <= max(MODEL_GAP_BOUND, 2 * own), (name, model_gap, own)
+    print(f"engine launches per forward (K3, K4, K1): unit {launches['unit']}, "
+          f"fused {launches['fused']}")
+
+    forwards = {**engines, "model": model}
+    fps = {name: [] for name in forwards}
+    for rep in range(3):
+        for name in (forwards if rep % 2 == 0 else reversed(list(forwards))):
+            with torch.inference_mode():
+                fps[name].append(_forward_fps(forwards[name], inputs))
+    for name, vals in fps.items():
+        print(f"forward frames/s {name} NYU stages={STAGES} bf16 batch={ENGINE_BATCH}: median "
+              f"{statistics.median(vals):.1f} of {[round(v, 1) for v in vals]}")
+    return launches
+
+
+def phase_engine_reference(device):
+    """Small f32 models (14 joints, level 2, 16x16 labels, batch 3) through
+    each engine on the card (kernels, TF32 off) and on the CPU (the plain
+    versions, which the CPU tests hold against the JAX engines): stage 1
+    within 1e-4 of each output's scale, stage 2 within the JAX golden tests'
+    stage-2 bounds (tests/test_infer_engine.py:60-67)."""
+    from pixelwiseregression_tpu_torch.models.infer_engine import (make_fused_apply,
+                                                                   make_unit_fused_apply)
+
+    cpu = torch.device("cpu")
+    for name, features in (("unit", 64), ("fused", 32)):
+        state = _engine_model(cpu, torch.float32, features, 2).state_dict()
+        inputs = _engine_inputs(cpu, 3, 16, SEED + 80)
+        outs = {}
+        for dev in (device, cpu):
+            model = _engine_model(dev, torch.float32, features, 2)
+            model.load_state_dict(state)
+            fn = (make_unit_fused_apply(model, min_res=4) if name == "unit"
+                  else make_fused_apply(model))
+            outs[dev.type] = [[t.float().cpu() for t in st] for st in fn(*(t.to(dev) for t in inputs))]
+        rel = []
+        for s, (got, want) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            rel.append([float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)])
+            if s == 0:
+                assert max(rel[0]) <= 1e-4, rel[0]
+            else:
+                for g, w, (atol, rtol) in zip(got, want, ((1e-3, 1e-3), (2e-2, 2e-2), (5e-3, 1e-3))):
+                    torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+        print(f"engine reference: small f32 {name} engine, card vs CPU, (heatmaps, depthmaps, uvd) "
+              f"gaps relative to their scale: {[[f'{v:.2e}' for v in r] for r in rel]}")
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--profile"]):
         print("usage: chip_smoke.py [--profile]", file=sys.stderr)
@@ -611,6 +954,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pixelwiseregression_tpu_torch.ops import cuda_lib
     from pixelwiseregression_tpu_torch.ops import cuda_softargmax as cs
     from pixelwiseregression_tpu_torch.ops.softargmax import soft_argmax_decode_flat
 
@@ -621,7 +965,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    lib, log = cs.build()
+    lib, log = cuda_lib.build()
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or line.endswith(":"):
@@ -637,21 +981,59 @@ def main() -> int:
     train_launches = phase_train(cs, device)
     phase_train_f32(cs, device)
     phase_train_reference(device)
+    units = phase_fused_units(device)
+    hourglass = phase_hourglass(device)
+    engine_launches = phase_engines(cs, device)
+    phase_engine_reference(device)
+
+    # the bounds of the TPU kernels still to port, at their own shapes: K5
+    # (tools/normrelu_bwd_ab.py: reads x and g, writes dx, ~12 f32 operations
+    # an element) and K6's pieces of K3's head unit (the copy: x in, y out)
+    n5 = 128 * H * W * FEATURES
+    k5, k5_by = _bound(12 * n5, 2 * 3 * n5 + 4 * 4 * FEATURES, "f32")
+    k6, k6_by = _bound(0, 2 * 2 * UNIT_BATCH * H * W * FEATURES, "bf16")
+    print(f"bounds still to port: K5 [128,{H},{W},{FEATURES}] bf16 {k5:.5f} ms ({k5_by}); "
+          f"K6 copy piece [{UNIT_BATCH},{H},{W},{FEATURES}] bf16 {k6:.5f} ms ({k6_by}), its "
+          f"conv-only piece is K3's head-unit bound")
 
     source = "pixelwiseregression_tpu_torch/csrc/{}.cu"
-    replaces = "pixelwiseregression_tpu/ops/pallas_softargmax.py:{}"
     main_fwd = fwd[(TRAIN_BATCH, "f32")]
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _decoder_bounds(TRAIN_BATCH)
+    head = units[("head_conv", "bf16")]
     print(json.dumps({"kernels": [
         {"name": "softargmax_fwd", "route": "cuda", "source": source.format("softargmax_fwd"),
-         "replaces": replaces.format(50), "launches": train_launches[0],
-         "launches_by_path": {"serve": serve_launches, "train": train_launches[0]},
+         "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:50",
+         "launches": train_launches[0],
+         "launches_by_path": {"serve": serve_launches, "train": train_launches[0],
+                              "unit_engine": engine_launches["unit"][2],
+                              "fused_engine": engine_launches["fused"][2]},
          "max_abs_err": main_fwd["max_abs_err"], "ms": main_fwd["ms"],
-         "plain_ms": main_fwd["plain_ms"], "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32"},
+         "plain_ms": main_fwd["plain_ms"], "library_ms": None, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32"},
         {"name": "softargmax_bwd", "route": "cuda", "source": source.format("softargmax_bwd"),
-         "replaces": replaces.format(76), "launches": train_launches[1],
+         "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
+         "launches": train_launches[1], "launches_by_path": {"train": train_launches[1]},
          "max_abs_err": bwd[TRAIN_BATCH]["max_abs_err"], "ms": bwd[TRAIN_BATCH]["ms"],
-         "plain_ms": bwd[TRAIN_BATCH]["plain_ms"], "shape": [TRAIN_BATCH, J, H * W],
-         "dtype": "f32"},
+         "plain_ms": bwd[TRAIN_BATCH]["plain_ms"], "library_ms": None, "bound_ms": bwd_bound,
+         "bound_by": bwd_by, "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32"},
+        {"name": "fused_chain", "route": "cuda", "source": source.format("fused_chain"),
+         "replaces": "pixelwiseregression_tpu/ops/pallas_fused.py:102",
+         "launches": engine_launches["unit"][0],
+         "launches_by_path": {"unit_engine": engine_launches["unit"][0],
+                              "fused_engine": engine_launches["fused"][0]},
+         "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+         "library_ms": head["library_ms"], "bound_ms": head["bound_ms"],
+         "bound_by": head["bound_by"], "shape": head["shape"], "dtype": "bf16",
+         "unit": "head_conv: 3x3 128->128 + epilogue norm; library_ms is cuDNN's conv alone"},
+        {"name": "hourglass_fused", "route": "cuda", "source": source.format("hourglass"),
+         "replaces": "pixelwiseregression_tpu/ops/pallas_hourglass.py:188",
+         "launches": engine_launches["fused"][1],
+         "launches_by_path": {"unit_engine": engine_launches["unit"][1],
+                              "fused_engine": engine_launches["fused"][1]},
+         "max_abs_err": hourglass["max_abs_err"], "ms": hourglass["ms"],
+         "plain_ms": hourglass["plain_ms"], "library_ms": None,
+         "bound_ms": hourglass["bound_ms"], "bound_by": hourglass["bound_by"],
+         "shape": [UNIT_BATCH, H, W, FEATURES], "dtype": "bf16"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

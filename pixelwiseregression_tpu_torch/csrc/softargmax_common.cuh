@@ -1,6 +1,6 @@
 // Pieces shared by the soft-argmax decoder's forward (softargmax_fwd.cu) and
-// backward (softargmax_bwd.cu) kernels: 8-wide vector loads and stores,
-// block-wide sums and maxima in f32, and the COM filter tables.
+// backward (softargmax_bwd.cu) kernels: block-wide sums and maxima in f32 and
+// the COM filter tables (the 8-wide vector loads and stores are vec8.cuh's).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,43 +8,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "vec8.cuh"
+
 namespace softargmax {
+
+using pwr::kVec;
+using pwr::load8;
+using pwr::store8;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kVec = 8;  // elements per thread-step
 constexpr float kEps = 1e-14f;
-
-__device__ __forceinline__ void load8(const float* p, float v[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[kVec]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float v[kVec]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[kVec]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
 
 // Sum of N per-thread values over the block; every thread gets the totals.
 // scratch holds (kWarps + 1) * N floats.

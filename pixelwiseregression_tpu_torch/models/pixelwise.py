@@ -155,6 +155,9 @@ class PixelwiseRegression(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.level = level
+        self.kernel_size = kernel_size
+        self.norm_method = norm_method
         # stem: 1 -> 32, feature-doubling kxk convs up to `features`, then a
         # stride-2 conv halving the spatial size
         widths = [32]

@@ -8,10 +8,9 @@ Two kernels, each in its own source under ``csrc/``:
   returns the gradients of the logits, the depth maps, the label image and
   the temperature ``w``.
 
-``build()`` compiles both sources (with their shared ``.cuh`` header) with
-one ``nvcc`` call for ``sm_90a`` into one shared library with a plain C
-interface under ``_build/``, named by the hash of ``csrc/``, the first time a
-kernel is needed; it is bound with ctypes. A build or load failure raises.
+Both are built with the port's other kernels into one library by
+``ops/cuda_lib.py`` the first time a kernel is needed, and bound with
+ctypes. A build or load failure raises.
 
 Wrappers, and what they do with each tensor:
 
@@ -29,14 +28,10 @@ can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from pixelwiseregression_tpu_torch.ops import cuda_lib
 from pixelwiseregression_tpu_torch.ops.softargmax import (
     _to_flat,
     soft_argmax_decode,
@@ -46,9 +41,6 @@ from pixelwiseregression_tpu_torch.ops.softargmax import (
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD_DIR = _PKG / "_build"
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -57,55 +49,10 @@ _ARGTYPES = {
     # (x, dm, label, mask, w, g_hm, g_uvd, dx, ddm, dlabel, dw, B, J, H, W, stream)
     "softargmax_bwd": [_P] * 11 + [_I] * 4 + [_P],
 }
-_lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernels if a source changed; returns (library, compiler log).
-
-    The log holds ``-Xptxas -v``'s registers, shared memory and spills for a
-    fresh build, and is empty when the cached library was current.
-    """
-    sources = sorted(_CSRC.glob("*.cu"))
-    h = hashlib.sha256()
-    for src in sorted(_CSRC.glob("*.cu*")):
-        h.update(src.name.encode() + src.read_bytes())
-    lib = _BUILD_DIR / f"libsoftargmax_{h.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _fn(name):
+    return cuda_lib.function(name, _ARGTYPES[name])
 
 
 def _check(x, dm, label, mask, w, h, wd, hm_dtype):
@@ -148,13 +95,12 @@ def _forward(x, dm, label, mask, w, h, wd, hm_dtype):
     b, j, hw = x.shape
     hm = torch.empty((b, j, hw), dtype=hm_dtype, device=x.device)
     uvd = torch.empty((b, j, 3), dtype=torch.float32, device=x.device)
-    rc = _load().softargmax_fwd(
+    rc = _fn("softargmax_fwd")(
         int(x.dtype == torch.bfloat16), int(hm_dtype == torch.bfloat16),
         x.data_ptr(), dm.data_ptr(), label.data_ptr(), mask.data_ptr(), w.data_ptr(),
         hm.data_ptr(), uvd.data_ptr(), b, j, h, wd,
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"softargmax_fwd launch failed with cudaError {rc}")
+    cuda_lib.check(rc, "softargmax_fwd")
     LAUNCHES += 1
     return hm, uvd
 
@@ -187,12 +133,11 @@ def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
     dx, ddm = torch.empty_like(x), torch.empty_like(x)
     dlabel = torch.empty_like(label)
     dw = torch.empty((b, j), dtype=torch.float32, device=x.device)
-    rc = _load().softargmax_bwd(
+    rc = _fn("softargmax_bwd")(
         x.data_ptr(), dm.data_ptr(), label.data_ptr(), mask.data_ptr(), w.data_ptr(),
         g_hm.data_ptr(), g_uvd.data_ptr(), dx.data_ptr(), ddm.data_ptr(), dlabel.data_ptr(),
         dw.data_ptr(), b, j, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"softargmax_bwd launch failed with cudaError {rc}")
+    cuda_lib.check(rc, "softargmax_bwd")
     BWD_LAUNCHES += 1
     # per-row dw [B, J] reduces over the batch outside the kernel, as in the JAX package
     return dx, ddm, dlabel, dw.sum(dim=0)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: the soft-argmax decoder's forward
-(K1) and backward (K2) kernels vs their plain PyTorch versions, the
-wrappers' checks, the Predictor through K1 and a train step through both.
+(K1) and backward (K2) kernels, the fused conv + instance-norm unit (K3)
+and the whole hourglass (K4) vs their plain PyTorch versions, the
+wrappers' checks, the Predictor through K1, a train step through K1 and
+K2, and both inference engines through K3, K4 and K1.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -15,7 +17,10 @@ import torch
 
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, draw_augmentation
 from pixelwiseregression_tpu_torch.data.sources import SPECS
-from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
+from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
+from pixelwiseregression_tpu_torch.ops import cuda_fused as tfused
+from pixelwiseregression_tpu_torch.ops import cuda_hourglass as thg
 from pixelwiseregression_tpu_torch.ops import cuda_softargmax as tcuda
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
 from pixelwiseregression_tpu_torch.serve import Predictor
@@ -29,6 +34,10 @@ pytestmark = pytest.mark.cuda
 def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' f32 convs must not run in TF32 (Predictor and the
+    # train state set the same)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda:0")
 
 
@@ -237,3 +246,221 @@ def test_train_step_through_the_kernels_matches_plain_decoder(device):
     whole = (torch.cat([(g_k[n] - g_p[n]).flatten() for n in g_p]).norm()
              / torch.cat([g_p[n].flatten() for n in g_p]).norm())
     assert float(whole) <= 5e-2, float(whole)
+
+
+# --------------------------------------------------------------------------- #
+# K3 (fused conv + instance norm) and K4 (whole hourglass)
+# --------------------------------------------------------------------------- #
+
+# (k, C, Co, prologue, epilogue) per unit, and whether the chain ends with + x
+UNIT_FORMS = {
+    "epi_k1": ([(1, 8, 16, False, True)], False),
+    "epi_k3": ([(3, 8, 16, False, True)], False),
+    "pro_k1": ([(1, 16, 8, True, False)], False),
+    "pro_k3": ([(3, 16, 8, True, False)], False),
+    "both": ([(3, 8, 16, True, True)], False),
+    "pro_skip": ([(1, 16, 16, True, False)], True),
+    "head_chain": ([(3, 8, 8, False, True)] * 3, False),
+    "resblock": ([(1, 16, 8, True, False), (3, 8, 8, True, False), (1, 8, 16, True, False)], True),
+    # past one 64x64 tile in M and N, a partial 32-channel K step, C > 32
+    "wide": ([(3, 48, 72, True, True), (1, 72, 48, True, False)], True),
+}
+
+
+def _units(spec, seed, device):
+    rng = np.random.RandomState(seed)
+    units = []
+    for k, c, co, pro, epi in spec:
+        def put(a):
+            return torch.from_numpy(a.astype(np.float32)).to(device)
+        u = {"kernel": put(0.3 * rng.randn(k, k, c, co)), "bias": put(0.1 * rng.randn(co))}
+        if pro:
+            u["pro"] = (put(1.0 + 0.1 * rng.randn(c)), put(0.1 * rng.randn(c)))
+        if epi:
+            u["epi"] = (put(1.0 + 0.1 * rng.randn(co)), put(0.1 * rng.randn(co)))
+        units.append(u)
+    return units
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of the output's largest magnitude."""
+    scale = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", list(UNIT_FORMS))
+def test_fused_chain_kernel_matches_plain_version(device, form, dtype):
+    """K3 vs its plain version on the card, same inputs. f32: atol 1e-4 of
+    the output's scale (both accumulate in f32, in another order; an
+    epilogue's statistics carry that order into every element). bf16: at
+    most 2 bf16 ulps of the output's scale (an order difference flips a
+    rounding by 1 ulp; a chain may carry one flip into the next unit)."""
+    dt = getattr(torch, dtype)
+    spec, with_skip = UNIT_FORMS[form]
+    rng = np.random.RandomState(20)
+    x = torch.from_numpy((1.0 + rng.randn(3, 12, 12, spec[0][1])).astype(np.float32)).to(device, dt)
+    units = _units(spec, 21, device)
+    skip = x if with_skip else None
+    before = tfused.LAUNCHES
+    got = tfused.fused_chain(x, units, skip=skip)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES == before + 1
+    want = tfused.fused_chain_plain(x, units, skip=skip)
+    assert got.shape == want.shape and got.dtype == dt and torch.isfinite(got.float()).all()
+    if dt == torch.float32:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    else:
+        assert _bf16_ulps(got, want) <= 2.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_chain_kernel_zero_padding_is_exact(device, dtype):
+    """The 3x3 border on the card, integer-exact (tests/test_pallas_fused.py):
+    interior 9C, edges 6C, corners 4C, and a left tap that sees a zero at x=0."""
+    dt = getattr(torch, dtype)
+    c = 8
+    x = torch.ones(1, 8, 8, c, device=device, dtype=dt)
+    w = torch.ones(3, 3, c, c, device=device)
+    b = torch.zeros(c, device=device)
+    got = tfused.fused_conv_norm(x, w, b)[0, :, :, 0].float().cpu()
+    assert got[4, 4] == 9 * c and got[0, 4] == 6 * c and got[4, 0] == 6 * c
+    assert got[0, 0] == 4 * c and got[-1, -1] == 4 * c
+    xv = torch.arange(8, device=device, dtype=torch.float32)[None, None, :, None].expand(1, 8, 8, c)
+    wl = torch.zeros(3, 3, c, c, device=device)
+    wl[1, 0] = 1.0
+    got = tfused.fused_conv_norm(xv.to(dt).contiguous(), wl, b)[0, 4, :, 0].float().cpu()
+    want = torch.cat([torch.zeros(1), torch.arange(7, dtype=torch.float32)]) * c
+    assert torch.equal(got, want)
+
+
+def test_fused_chain_kernel_takes_a_weight_view_off_16_bytes(device):
+    """A conv weight that is a view 2 bytes into a larger tensor (the kernel
+    loads weights 16 bytes at a time): the same result as a fresh copy."""
+    x = torch.randn(2, 8, 8, 16, device=device).to(torch.bfloat16)
+    units = _units([(3, 16, 16, True, True)], 42, device)
+    flat = torch.empty(units[0]["kernel"].numel() + 1, device=device, dtype=torch.bfloat16)
+    view = flat[1:].view(units[0]["kernel"].shape)
+    view.copy_(units[0]["kernel"])
+    assert view.data_ptr() % 16
+    got = tfused.fused_chain(x, [{**units[0], "kernel": view}])
+    want = tfused.fused_chain(x, [{**units[0], "kernel": view.clone()}])
+    assert torch.equal(got, want)
+
+
+def _hourglass_state(features, level, seed):
+    torch.manual_seed(seed)
+    hg = Hourglass(features, level, "instance")
+    with torch.no_grad():  # norm scales and biases away from 1 and 0
+        for m in hg.modules():
+            if hasattr(m, "method"):
+                m.weight.add_(0.1 * torch.randn_like(m.weight))
+                m.bias.add_(0.1 * torch.randn_like(m.bias))
+    return hg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hourglass_kernel_matches_plain_version(device, dtype):
+    """K4 at level 1 ([2, 16, 16, 32]) vs its plain version on the card.
+    f32: atol 1e-4 of the output's scale; bf16: at most 4 bf16 ulps of it
+    (17 convs and 15 norms deep; an order difference that flips one rounding
+    moves the statistics of every later norm)."""
+    dt = getattr(torch, dtype)
+    stacked = {k: v.to(device) for k, v in
+               thg.stack_hourglass_params(_hourglass_state(32, 1, 30), 1).items()}
+    x = torch.from_numpy(np.random.RandomState(31).randn(2, 16, 16, 32).astype(np.float32))
+    x = x.to(device, dt)
+    before = thg.LAUNCHES
+    got = thg.hourglass_fused(x, stacked, 1)
+    torch.cuda.synchronize()
+    assert thg.LAUNCHES == before + 1
+    want = thg.hourglass_fused_plain(x, stacked, 1)
+    assert torch.isfinite(got.float()).all()
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    else:
+        assert _bf16_ulps(got, want) <= 4.0
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(device):
+    x = torch.randn(2, 8, 8, 16, device=device)
+    units = _units([(3, 16, 16, True, True)], 40, device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfused.fused_chain(x.transpose(1, 2), units)
+    with pytest.raises(TypeError):
+        tfused.fused_chain(x.half(), units)
+    with pytest.raises(TypeError):
+        tfused.fused_chain(x, units, skip=x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        tfused.fused_chain(x, [{**units[0], "bias": units[0]["bias"].cpu()}])
+    with pytest.raises(ValueError):
+        tfused.fused_chain(x.cpu(), units)
+    stacked = {k: v.to(device) for k, v in
+               thg.stack_hourglass_params(_hourglass_state(16, 0, 41), 0).items()}
+    with pytest.raises(ValueError, match="contiguous"):
+        thg.hourglass_fused(x.transpose(1, 2), stacked, 0)
+    with pytest.raises(TypeError):
+        thg.hourglass_fused(x.half(), stacked, 0)
+    with pytest.raises(ValueError):
+        thg.hourglass_fused(x, {**stacked, "w1": stacked["w1"].cpu()}, 0)
+    with pytest.raises(ValueError):
+        thg.hourglass_fused(x.cpu(), stacked, 0)
+
+
+def _engine_inputs(device, b=3, label=16, seed=50):
+    rng = np.random.RandomState(seed)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return (put(rng.randn(b, 1, 2 * label, 2 * label)), put(rng.randn(b, 1, label, label)),
+            put(rng.rand(b, 1, label, label) > 0.3))
+
+
+@pytest.mark.parametrize("engine", ["unit", "fused"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_through_the_kernels_matches_its_plain_version(device, engine, dtype):
+    """Both engines on the card (features 64, level 2, 2 stages, 14 joints):
+    the kernels against the same engine on the kernels' plain versions, same
+    weights and inputs. Launches per forward: the unit engine (min_res 4)
+    runs 1 stem unit and, per stage, 5 ResBlocks of 3 units at 4x4 and
+    above plus 6 head units: 43; the fused engine 2 K4; K1 2 either way.
+    f32 uvd within the JAX engine tests' bounds, 5e-4 for stage 1 and 5e-3
+    for stage 2 (tests/test_infer_engine.py:62-63). bf16 uvd within 2e-2
+    (:77-80) or twice the plain engine's own bf16-vs-f32 gap, whichever is
+    larger: on random weights two bf16 roundings of this 2-stage level-2
+    model part by several 1e-2 in uvd, since the instance norms amplify a
+    1-ulp difference (PERF.md, section 6)."""
+    dt = getattr(torch, dtype)
+
+    def build(model, **kw):
+        if engine == "unit":
+            return make_unit_fused_apply(model, min_res=4, **kw)
+        return make_fused_apply(model, **kw)
+
+    def model_in(dtype_):
+        torch.manual_seed(5)
+        return PixelwiseRegression(14, stage=2, features=64, level=2, norm_method="instance",
+                                   decoder="cuda", dtype=dtype_).to(device).eval()
+
+    model = model_in(dt)
+    inputs = _engine_inputs(device)
+    counter, per_forward = (tfused, 43) if engine == "unit" else (thg, 2)
+    before = (counter.LAUNCHES, tcuda.LAUNCHES)
+    got = build(model)(*inputs)
+    torch.cuda.synchronize()
+    assert (counter.LAUNCHES - before[0], tcuda.LAUNCHES - before[1]) == (per_forward, 2)
+    want = build(model, plain=True)(*inputs)
+    if dt == torch.bfloat16:
+        want32 = build(model_in(torch.float32), plain=True)(*inputs)
+        own = [float((a[2] - b[2]).abs().max()) for a, b in zip(want, want32)]
+    for s, ((hm, dm, uvd), (hm_p, dm_p, uvd_p)) in enumerate(zip(got, want)):
+        assert hm.shape == (3, 14, 16, 16) and dm.shape == hm.shape and uvd.shape == (3, 14, 3)
+        assert torch.isfinite(uvd).all() and torch.isfinite(hm).all()
+        bound = max(2e-2, 2 * own[s]) if dt == torch.bfloat16 else (5e-4 if s == 0 else 5e-3)
+        gap = float((uvd - uvd_p).abs().max())
+        print(f"{engine} {dtype} stage {s + 1}: uvd gap kernels vs plain {gap:.3e}"
+              + (f", the plain engine's own bf16-vs-f32 gap {own[s]:.3e}" if dt == torch.bfloat16 else ""))
+        assert gap <= bound, (s, gap)
