@@ -5,9 +5,10 @@ Run from the root of the repository on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port from csrc/ with one nvcc call (K1 and
-K2, the soft-argmax decoder's forward and backward; K3, the fused conv +
-instance-norm unit; K4, the whole hourglass), then:
+It builds every kernel of the port from csrc/, one nvcc process per source,
+all started together (K1 and K2, the soft-argmax decoder's forward and
+backward; K3, the fused conv + instance-norm unit; K4, the whole
+hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 
 1. K1, the forward kernel, at the serving and training shapes
    ([32|128|256, 14, 64*64], f32 and bf16-in/bf16-heatmap), against its
@@ -39,7 +40,17 @@ instance-norm unit; K4, the whole hourglass), then:
    launches per forward, the fused engine through 2 K4 and 2 K1, each
    against the same engine on the kernels' plain versions and against the
    model's own forward, and frames/s of all three;
-11. a small f32 model with both engines on the card against the CPU.
+11. a small f32 model with both engines on the card against the CPU;
+12. K5 against its plain version at [128, 64, 64, 128] bf16 and one f32
+   case, each with a channel at scale = bias = 0, timed beside ATen's
+   autograd backward of relu(instance_norm);
+13. each K6 piece (copy, build_xm and its probes, xm_dots, K3's statistics
+   and apply alone) at the head shape, batch 256, against its plain
+   version, timed beside Tensor.copy_ and three torch.matmul calls;
+14. the tools slice: the five A/B and ablation tools of the port
+   (pixelwiseregression_tpu_torch/tools) at their default shapes with few
+   rounds, each through its kernels, with the launches of K5, K3 and each
+   K6 piece asserted.
 
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
@@ -48,7 +59,7 @@ quotes.
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
-(serve, train, unit_engine, fused_engine), their times, their plain
+(serve, train, unit_engine, fused_engine, tools), their times, their plain
 versions' and a library call's, and their bounds: the larger of the bytes
 they must move over 3.35 TB/s and their operations over the peak rate of
 their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), for an H100 SXM.
@@ -87,9 +98,6 @@ TRAIN_STEPS = 10
 # zero may flip sign between the two roundings and move whole entries
 LOSS_GAP_BOUND = 1e-3
 GRAD_GAP_BOUND = 1e-1
-# the roofline of an H100 SXM (NVIDIA's data sheet, dense)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 UNIT_BATCH = 256    # K3 and K4 alone, at bench.py's batch
 ENGINE_BATCH = 64   # the engines end to end
 FEATURES, LEVEL = 128, 4
@@ -650,9 +658,12 @@ def phase_profile(device, steps=3):
 
 
 def _bound(flops, nbytes, kind):
-    """The least time (ms) an H100 SXM could take, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """The least time (ms) an H100 SXM could take, and what bounds it (the
+    roofline the port's tools use)."""
+    from pixelwiseregression_tpu_torch.tools.ab_common import bound
+
+    seconds, by = bound(flops, nbytes, kind)
+    return seconds * 1e3, by
 
 
 def _decoder_bounds(b):
@@ -946,6 +957,236 @@ def phase_engine_reference(device):
               f"gaps relative to their scale: {[[f'{v:.2e}' for v in r] for r in rel]}")
 
 
+def _free():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_normrelu(device):
+    """K5 against its plain version: [128, 64, 64, 128] bf16 (the A/B tool's
+    shape) and [37, 24, 40, 128] f32 (a batch and a pixel count that fill
+    no tile), channel 0 at scale = bias = 0 in both. dx within 1 bf16 ulp
+    of its scale (f32: 1e-5 of it), dscale and dbias rtol 1e-4 atol 1e-2,
+    the zero channel's gradients exactly 0. Timed at the bf16 shape: K5
+    alone, its plain version, and ATen's autograd backward of
+    relu(instance_norm) on the same inputs."""
+    import torch.nn.functional as F
+
+    from pixelwiseregression_tpu_torch.ops import cuda_normrelu as cn
+    from pixelwiseregression_tpu_torch.ops import fused_normrelu as fnr
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    out = {}
+    for shape, dtype in (((128, H, W, FEATURES), torch.bfloat16),
+                         ((37, 24, 40, FEATURES), torch.float32)):
+        c = shape[-1]
+        x = (torch.randn(*shape, generator=gen, device=device) + 0.3).to(dtype)
+        g = torch.randn(*shape, generator=gen, device=device).to(dtype)
+        scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+        bias = 0.1 * torch.randn(c, generator=gen, device=device)
+        scale[0] = bias[0] = 0.0
+        mean, inv = fnr.norm_relu_stats(x)
+
+        def kernel():
+            return cn.normrelu_bwd(g, x, mean, inv, scale, bias)
+
+        def plain():
+            return fnr.normrelu_bwd_plain(g, x, mean, inv, scale, bias)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert float(got[0][..., 0].abs().max()) == 0.0 and float(got[1][0]) == 0.0 \
+            and float(got[2][0]) == 0.0, "the zero channel has gradients"
+        assert torch.isfinite(got[0].float()).all()
+        err, ulps, share = _rounding_gap(got[0], want[0])
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        if dtype == torch.bfloat16:
+            assert ulps <= 1.0, f"K5 dx {tag}: {ulps:.2f} ulps of the scale"
+        else:
+            assert err <= 1e-5 * float(want[0].abs().max()), f"K5 dx f32: {err:.3e}"
+        for name, a, b in (("dscale", got[1], want[1]), ("dbias", got[2], want[2])):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-2, msg=name)
+        perr = max(float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max()))
+        line = (f"kernel normrelu_bwd {list(shape)} {tag}: dx max_abs_err={err:.3e} ({ulps:.2f} "
+                f"ulps of the scale, {share:.2e} of elements > 1 ulp apart), dscale/dbias "
+                f"max_abs_err={perr:.3e}, zero channel exact")
+        if dtype == torch.bfloat16:
+            leaves = [x.permute(0, 3, 1, 2).detach().requires_grad_(True),
+                      scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)]
+            y = F.relu(F.instance_norm(leaves[0], weight=leaves[1], bias=leaves[2], eps=1e-5))
+            g_nchw = g.permute(0, 3, 1, 2)
+
+            def library():
+                return torch.autograd.grad(y, leaves, g_nchw, retain_graph=True)
+
+            ms, plain_ms, lib_ms = _median_ms(kernel), _median_ms(plain, runs=5, iters=5), \
+                _median_ms(library)
+            n = x.numel()
+            bound, by = _bound(12 * n, 2 * 3 * n + 4 * (2 * shape[0] * c + 4 * c), "f32")
+            line += (f" kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+                     f"(ATen's autograd backward of relu(instance_norm)) bound_ms={bound:.5f} ({by})")
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound, "bound_by": by, "shape": list(shape)}
+            del leaves, y
+        print(line)
+        del x, g, got, want
+    _free()
+    return out
+
+
+def phase_ablate(device):
+    """Each K6 piece at the head shape, batch 256, bf16, against its plain
+    version: the copy and every build_xm mode bit-exact, xm_dots within 2
+    bf16 ulps of its scale (f32 products in another order), K3's
+    statistics and apply alone within K3's 2 ulps; build_xm and xm_dots
+    again at the stem shape ablate_fused2 gives them. Each timed beside its
+    plain version and, where one PyTorch call computes the same function,
+    that call: Tensor.copy_ for the copy, the sum of three torch.matmul
+    calls on the same operand for xm_dots."""
+    from pixelwiseregression_tpu_torch.ops import ablate_pieces as ap
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 91)
+    b, hw, c = UNIT_BATCH, H * W, FEATURES
+    x = (torch.randn(b, hw, c, generator=gen, device=device) + 2.0).to(torch.bfloat16)
+    es = 1.0 + 0.1 * torch.randn(c, generator=gen, device=device)
+    eb = 0.1 * torch.randn(c, generator=gen, device=device)
+    act = 2 * x.numel()
+    out = {}
+
+    def record(name, err, kernel, plain, library, bound, note):
+        ms = _median_ms(kernel)
+        plain_ms = _median_ms(plain, runs=3, iters=3)
+        lib_ms = _median_ms(library) if library is not None else None
+        bms, by = bound
+        print(f"kernel {name} [{b},{hw},{c}] bf16: max_abs_err={err:.3e}{note} kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} library_ms="
+              f"{'none' if lib_ms is None else f'{lib_ms:.5f}'} bound_ms={bms:.5f} ({by})")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bms, "bound_by": by}
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    y = ap.copy(x)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(y), bits(x)), "copy is not exact"
+    dst = torch.empty_like(x)
+    record("ablate_copy", 0.0, lambda: ap.copy(x), lambda: x.clone(), lambda: dst.copy_(x),
+           _bound(0, 2 * act, "bf16"), " (bit-exact)")
+    del y, dst
+
+    for mode in ap.XM_MODES:
+        got, want = ap.build_xm(x, H, W, mode), ap.build_xm_plain(x, H, W, mode)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(bits(got), bits(want)), f"build_xm {mode}"
+        del got, want
+    xm_bytes = 2 * b * (H + 2) * W * 3 * c
+    record("ablate_build_xm", 0.0, lambda: ap.build_xm(x, H, W), lambda: ap.build_xm_plain(x, H, W),
+           None, _bound(0, act + xm_bytes, "bf16"),
+           f" (bit-exact in every mode: {', '.join(ap.XM_MODES)}; timed: xm)")
+    _free()
+
+    xm = (0.5 * torch.randn(b, (H + 2) * W, 3 * c, generator=gen, device=device)).to(torch.bfloat16)
+    wcat = (0.1 * torch.randn(3, 3 * c, c, generator=gen, device=device)).to(torch.bfloat16)
+    offsets = (0, W, 2 * W)
+    got, want = ap.xm_dots(xm, wcat, hw, offsets), ap.xm_dots_plain(xm, wcat, hw, offsets)
+    torch.cuda.synchronize()
+    err, ulps, share = _rounding_gap(got, want)
+    assert ulps <= 2.0, f"xm_dots: {ulps:.2f} bf16 ulps of the scale"
+    del got, want
+    _free()
+
+    def matmuls():
+        return sum(torch.matmul(xm[:, o:o + hw], wcat[di]) for di, o in enumerate(offsets))
+
+    record("ablate_xm_dots", err, lambda: ap.xm_dots(xm, wcat, hw, offsets),
+           lambda: ap.xm_dots_plain(xm, wcat, hw, offsets), matmuls,
+           _bound(2 * b * hw * 9 * c * c, 2 * xm.numel() + act + 2 * wcat.numel(), "bf16"),
+           f" ({ulps:.2f} ulps of the scale, {share:.2e} of elements > 1 ulp apart; operand "
+           f"[{b},{(H + 2) * W},{3 * c}], library: three torch.matmul on it, summed)")
+    del xm
+    _free()
+
+    # the stem shape, on ablate_fused2's own inputs: its conv2_build_only
+    # (build_xm probe_cat) and conv2_dots_concat_only (build_xm repeat, then
+    # xm_dots with K = 192 at row offsets (0, 0, 0))
+    from pixelwiseregression_tpu_torch.tools import ablate_fused2 as af2
+
+    stem = af2.inputs(b, device)
+    x2, w2, hws = stem["x2"], stem["w2"], af2.HS * af2.WS
+    del stem
+    _free()
+    for mode in ("probe_cat", "repeat"):
+        got, want = ap.build_xm(x2, af2.HS, af2.WS, mode), ap.build_xm_plain(x2, af2.HS, af2.WS, mode)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(bits(got), bits(want)), \
+            f"build_xm {mode} at the stem shape"
+        del got, want
+    xr = ap.build_xm(x2, af2.HS, af2.WS, "repeat")
+    got, want = ap.xm_dots(xr, w2, hws, (0, 0, 0)), ap.xm_dots_plain(xr, w2, hws, (0, 0, 0))
+    torch.cuda.synchronize()
+    serr, sulps, sshare = _rounding_gap(got, want)
+    assert sulps <= 2.0, f"xm_dots at the stem shape: {sulps:.2f} bf16 ulps of the scale"
+    print(f"kernel ablate_build_xm [{b},{hws},64] bf16: probe_cat and repeat bit-exact; "
+          f"kernel ablate_xm_dots on the repeat operand [{b},{hws},192] x w2 [3,192,128], offsets "
+          f"(0,0,0): max_abs_err={serr:.3e} ({sulps:.2f} ulps of the scale, {sshare:.2e} of "
+          f"elements > 1 ulp apart)")
+    out["ablate_xm_dots"]["stem"] = {"shape": [b, hws, 192], "max_abs_err": serr, "ulps": sulps}
+    del x2, w2, xr, got, want
+    _free()
+
+    got, want = ap.norm_stats_apply(x, es, eb), ap.norm_stats_apply_plain(x, es, eb)
+    torch.cuda.synchronize()
+    err, ulps, share = _rounding_gap(got, want)
+    assert ulps <= UNIT_ULPS, f"norm_stats_apply: {ulps:.2f} bf16 ulps of the scale"
+    del got, want
+    record("norm_stats_apply", err, lambda: ap.norm_stats_apply(x, es, eb),
+           lambda: ap.norm_stats_apply_plain(x, es, eb), None, _bound(0, 2 * act, "bf16"),
+           f" ({ulps:.2f} ulps of the scale, {share:.2e} of elements > 1 ulp apart)")
+    del x
+    _free()
+    return out
+
+
+# the port's tools (the tools slice), the kernel counters each must move,
+# and the arguments of their run here: default shapes, few rounds
+TOOLS = (
+    ("normrelu_bwd_ab", {"K5"}),
+    ("ablate_fused_unit", {"K3", "build_xm", "xm_dots", "norm_stats_apply", "copy"}),
+    ("ablate_fused2", {"K3", "build_xm", "xm_dots"}),
+    ("ablate_fused3", {"K3", "copy"}),
+    ("bench_fused_chain", {"K3"}),
+)
+TOOL_ARGS = ["--rounds", "3", "--iters", "3"]
+
+
+def phase_tools():
+    """The tools slice: each tool's main() with every kernel counter set to 0
+    just before it and read just after; returns the launches by counter,
+    summed over the tools."""
+    import importlib
+
+    from pixelwiseregression_tpu_torch.tools import ab_common
+
+    total = dict.fromkeys(ab_common.COUNTERS, 0)
+    for name, kernels in TOOLS:
+        tool = importlib.import_module(f"pixelwiseregression_tpu_torch.tools.{name}")
+        for mod, attr in ab_common.COUNTERS.values():
+            setattr(mod, attr, 0)
+        print(f"tool {name} {' '.join(TOOL_ARGS)}:", flush=True)
+        t = time.perf_counter()
+        result = tool.main(TOOL_ARGS)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ab_common.read_counts().items() if n}
+        assert counts == result["launches"], (name, counts, result["launches"])
+        assert set(counts) == kernels, f"{name} launched {counts}, expected each of {kernels}"
+        for k, n in counts.items():
+            total[k] += n
+        print(f"tool {name}: launches {counts} in {time.perf_counter() - t:.1f} s")
+        _free()
+    return total
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--profile"]):
         print("usage: chip_smoke.py [--profile]", file=sys.stderr)
@@ -985,18 +1226,24 @@ def main() -> int:
     hourglass = phase_hourglass(device)
     engine_launches = phase_engines(cs, device)
     phase_engine_reference(device)
-
-    # the bounds of the TPU kernels still to port, at their own shapes: K5
-    # (tools/normrelu_bwd_ab.py: reads x and g, writes dx, ~12 f32 operations
-    # an element) and K6's pieces of K3's head unit (the copy: x in, y out)
-    n5 = 128 * H * W * FEATURES
-    k5, k5_by = _bound(12 * n5, 2 * 3 * n5 + 4 * 4 * FEATURES, "f32")
-    k6, k6_by = _bound(0, 2 * 2 * UNIT_BATCH * H * W * FEATURES, "bf16")
-    print(f"bounds still to port: K5 [128,{H},{W},{FEATURES}] bf16 {k5:.5f} ms ({k5_by}); "
-          f"K6 copy piece [{UNIT_BATCH},{H},{W},{FEATURES}] bf16 {k6:.5f} ms ({k6_by}), its "
-          f"conv-only piece is K3's head-unit bound")
+    normrelu = phase_normrelu(device)
+    pieces = phase_ablate(device)
+    tool_launches = phase_tools()
 
     source = "pixelwiseregression_tpu_torch/csrc/{}.cu"
+    k6 = [("ablate_copy", "ablate_pieces", "copy", "tools/ablate_fused3.py:113",
+           ["tools/ablate_fused3.py:136", "tools/ablate_fused_unit.py:131"]),
+          ("ablate_build_xm", "ablate_pieces", "build_xm", "tools/ablate_fused_unit.py:120",
+           ["tools/ablate_fused2.py:178", "tools/ablate_fused2.py:165"]),
+          ("ablate_xm_dots", "ablate_pieces", "xm_dots", "tools/ablate_fused_unit.py:152",
+           ["tools/ablate_fused2.py:165"]),
+          ("norm_stats_apply", "fused_chain", "norm_stats_apply", "tools/ablate_fused_unit.py:126",
+           [])]
+    k6_rows = [{"name": name, "route": "cuda", "source": source.format(src), "replaces": rep,
+                "also_replaces": also, "launches": tool_launches[counter],
+                "launches_by_path": {"tools": tool_launches[counter]}, **pieces[name],
+                "shape": [UNIT_BATCH, H * W, FEATURES], "dtype": "bf16"}
+               for name, src, counter, rep, also in k6]
     main_fwd = fwd[(TRAIN_BATCH, "f32")]
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _decoder_bounds(TRAIN_BATCH)
     head = units[("head_conv", "bf16")]
@@ -1020,7 +1267,8 @@ def main() -> int:
          "replaces": "pixelwiseregression_tpu/ops/pallas_fused.py:102",
          "launches": engine_launches["unit"][0],
          "launches_by_path": {"unit_engine": engine_launches["unit"][0],
-                              "fused_engine": engine_launches["fused"][0]},
+                              "fused_engine": engine_launches["fused"][0],
+                              "tools": tool_launches["K3"]},
          "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
          "library_ms": head["library_ms"], "bound_ms": head["bound_ms"],
          "bound_by": head["bound_by"], "shape": head["shape"], "dtype": "bf16",
@@ -1034,6 +1282,12 @@ def main() -> int:
          "plain_ms": hourglass["plain_ms"], "library_ms": None,
          "bound_ms": hourglass["bound_ms"], "bound_by": hourglass["bound_by"],
          "shape": [UNIT_BATCH, H, W, FEATURES], "dtype": "bf16"},
+        {"name": "normrelu_bwd", "route": "cuda", "source": source.format("normrelu_bwd"),
+         "replaces": "pixelwiseregression_tpu/ops/fused_normrelu.py:124",
+         "launches": tool_launches["K5"], "launches_by_path": {"tools": tool_launches["K5"]},
+         **normrelu, "dtype": "bf16",
+         "unit": "library_ms is ATen's autograd backward of relu(instance_norm)"},
+        *k6_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,7 @@ namespace {
 using pwr::copy8;
 using pwr::kVec;
 using pwr::load8;
+using pwr::round_act;
 using pwr::store8;
 using pwr::zero8;
 
@@ -57,15 +58,6 @@ constexpr int kConvThreads = 128;
 constexpr int kCStride = kBN + 4;  // f32 accumulator tile rows (wmma ldm % 4 == 0)
 constexpr int kStatRows = 8;       // pixel rows of the statistics block
 constexpr int kApplyThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ float round_act(float v);
-template <>
-__device__ __forceinline__ float round_act<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_act<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -444,4 +436,17 @@ extern "C" int fused_unit(int bf16, const void* x, const void* w, const float* b
   err = fused::norm_stats(bf16, tmp, epi_scale, epi_bias, coef_a, coef_b, B, H * W, Co, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(fused::norm_apply(bf16, tmp, coef_a, coef_b, skip, y, B, H * W, Co, s));
+}
+
+// K3's statistics and apply alone, y = round(relu(x*a + b)) with a, b from
+// x's own statistics: the stats-only probe of the ablation tools (K6).
+// x and y [B, HW, C] in the act dtype, C a multiple of 8; scale and bias
+// [C], coef_a and coef_b B*C floats. Returns the first launch's cudaError_t.
+extern "C" int norm_stats_apply(int bf16, const void* x, const float* scale, const float* bias,
+                                void* y, float* coef_a, float* coef_b, int B, int HW, int C,
+                                float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = fused::norm_stats(bf16, x, scale, bias, coef_a, coef_b, B, HW, C, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(fused::norm_apply(bf16, x, coef_a, coef_b, nullptr, y, B, HW, C, s));
 }

@@ -43,6 +43,16 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[kVec]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// f32 rounded to the storage type T and widened back (identity for f32).
+template <typename T>
+__device__ __forceinline__ float round_act(float v);
+template <>
+__device__ __forceinline__ float round_act<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_act<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // 8 elements copied as they are, or set to zero.
 template <typename T>
 __device__ __forceinline__ void copy8(const T* src, T* dst) {

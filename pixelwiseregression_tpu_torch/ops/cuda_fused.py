@@ -76,17 +76,7 @@ def fused_chain_plain(x, units, *, skip=None, eps: float = 1e-5):
     return h
 
 
-def _on_cpu(tensors) -> bool:
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"fused_chain runs on CPU or CUDA tensors, not {tensors[0].device}")
-    return False
-
-
-def _check_act(t, name, device, dtype):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, x on {device}")
+def _check_act(t, name, dtype):
     if t.dtype != dtype:
         raise TypeError(f"{name} is {t.dtype}, x is {dtype}")
     if not t.is_contiguous() or t.data_ptr() % 16:
@@ -116,16 +106,13 @@ def fused_chain(x, units, *, skip=None, eps: float = 1e-5):
     """
     global LAUNCHES
     tensors = [x, *_unit_tensors(units)] + ([skip] if skip is not None else [])
-    if _on_cpu(tensors):
+    if cuda_lib.on_cpu("fused_chain", tensors):
         return fused_chain_plain(x, units, skip=skip, eps=eps)
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_chain takes f32 or bf16 activations, got {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC [B, H, W, C], got {tuple(x.shape)}")
-    _check_act(x, "x", x.device, x.dtype)
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"a unit's tensor on {t.device}, x on {x.device}")
+    _check_act(x, "x", x.dtype)
     bsz, h, wd, cin = x.shape
     bf16 = int(x.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -159,7 +146,7 @@ def fused_chain(x, units, *, skip=None, eps: float = 1e-5):
         if last and skip is not None:
             if skip.shape != (bsz, h, wd, co):
                 raise ValueError(f"skip {tuple(skip.shape)} does not match the output")
-            _check_act(skip, "skip", x.device, x.dtype)
+            _check_act(skip, "skip", x.dtype)
         y = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
         tmp = torch.empty_like(y) if epi[0] is not None else None
         coef = torch.empty((2, bsz * max(cin, co)), dtype=torch.float32, device=x.device)

@@ -181,8 +181,6 @@ def _check(x, stacked, level):
         t = stacked[name]
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} is {tuple(t.shape)}, level {level} at C={c} needs {shape}")
-        if t.device != x.device:
-            raise ValueError(f"{name} on {t.device}, x on {x.device}")
 
 
 def hourglass_fused(x, stacked, level: int):
@@ -191,10 +189,8 @@ def hourglass_fused(x, stacked, level: int):
     dtype; biases and norm parameters stay f32). Semantics of
     ``pallas_hourglass.hourglass_fused``."""
     global LAUNCHES
-    if all(t.device.type == "cpu" for t in (x, *stacked.values())):
+    if cuda_lib.on_cpu("hourglass_fused", [x, *stacked.values()]):
         return hourglass_fused_plain(x, stacked, level)
-    if x.device.type != "cuda":
-        raise ValueError(f"x on {x.device}, the stacked weights on a card")
     _check(x, stacked, level)
     bsz, h, w, c = x.shape
     bf16 = int(x.dtype == torch.bfloat16)

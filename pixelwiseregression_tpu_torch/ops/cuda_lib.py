@@ -1,12 +1,14 @@
 """One build of every hand-written CUDA kernel of the port.
 
 ``build()`` compiles every ``csrc/*.cu`` (with the shared ``.cuh`` headers)
-with one ``nvcc`` call for ``sm_90a`` into one shared library with a plain C
-interface under ``_build/``, named by the hash of ``csrc/``, the first time a
-kernel is needed; ``function()`` binds one of its C entry points with ctypes.
-A build or load failure raises. Each wrapper module registers the argument
-types of its own entry points and checks their return code (a
-``cudaError_t``) after every launch with ``check()``.
+for ``sm_90a``, one ``nvcc`` process per source, all at once, and links them
+into one shared library with a plain C interface under ``_build/``, named by
+the hash of ``csrc/``, the first time a kernel is needed; ``function()``
+binds one of its C entry points with ctypes. A build or load failure
+raises. ``on_cpu()`` routes a wrapper's call: CPU tensors take the kernel's
+plain version, CUDA tensors the kernel. Each wrapper module registers the argument types of its own entry
+points and checks their return code (a ``cudaError_t``) after every launch
+with ``check()``.
 """
 
 from __future__ import annotations
@@ -36,11 +38,22 @@ def _nvcc() -> str:
     return found
 
 
+def _run(procs) -> str:
+    """Wait for every compiler process, then raise if one failed."""
+    done = [(cmd, *proc.communicate(), proc) for cmd, proc in procs]
+    for cmd, out, err, proc in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    return "".join(out + err for _, out, err, _ in done)
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels if a source changed; returns (library, compiler log).
 
-    The log holds ``-Xptxas -v``'s registers, shared memory and spills for a
-    fresh build, and is empty when the cached library was current.
+    Each source compiles in its own ``nvcc`` process, all started together,
+    and one more links the objects. The log holds ``-Xptxas -v``'s
+    registers, shared memory and spills for a fresh build, and is empty when
+    the cached library was current.
     """
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256()
@@ -50,15 +63,25 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    stem = _BUILD_DIR / f"{lib.stem}.{os.getpid()}"
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    objs, procs = [], []
+    for src in sources:
+        obj = f"{stem}.{src.stem}.o"
+        cmd = [_nvcc(), *arch, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", obj, str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True)))
+        objs.append(obj)
+    log = _run(procs)
+    tmp = f"{stem}.so.tmp"
+    cmd = [_nvcc(), *arch, "-shared", "-o", tmp, *objs]
+    log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True))])
     os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    for obj in objs:
+        os.remove(obj)
+    return lib, log
 
 
 def function(name: str, argtypes: list, restype=ctypes.c_int):
@@ -73,6 +96,18 @@ def function(name: str, argtypes: list, restype=ctypes.c_int):
         fn.restype = restype
         _bound[name] = fn
     return fn
+
+
+def on_cpu(name: str, tensors) -> bool:
+    """Where a wrapper runs: True when every tensor lies on the CPU (its
+    plain version), False when all lie on one CUDA device (its kernel);
+    anything else raises."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if any(t.device != tensors[0].device for t in tensors) or tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors on one device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    return False
 
 
 def check(rc: int, name: str) -> None:

@@ -71,24 +71,14 @@ def _check(x, dm, label, mask, w, h, wd, hm_dtype):
     if b * j == 0 or hw % 8 != 0 or h + wd > 12288:
         raise ValueError(f"kernel needs B*J > 0, H*W % 8 == 0 and small H+W, got {b}x{j}x{h}x{wd}")
     for t in (x, dm, label, mask, w):
-        if t.device != x.device:
-            raise ValueError(f"tensors on {x.device} and {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel needs contiguous, 16-byte aligned tensors")
-
-
-def _on_cpu(*tensors) -> bool:
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"the decoder runs on CPU or CUDA tensors, not {tensors[0].device}")
-    return False
 
 
 def _forward(x, dm, label, mask, w, h, wd, hm_dtype):
     """K1, or its plain version for CPU tensors."""
     global LAUNCHES
-    if _on_cpu(x, dm, label, mask, w):
+    if cuda_lib.on_cpu("the decoder", [x, dm, label, mask, w]):
         hm, uvd = soft_argmax_decode_flat(x, dm, label, mask, w, h, wd)
         return hm.to(hm_dtype), uvd
     _check(x, dm, label, mask, w, h, wd, hm_dtype)
@@ -116,7 +106,7 @@ def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
     global BWD_LAUNCHES
     g_hm = g_hm.to(torch.float32).contiguous()
     g_uvd = g_uvd.to(torch.float32).contiguous()
-    if _on_cpu(x, dm, label, mask, w, g_hm, g_uvd):
+    if cuda_lib.on_cpu("the decoder", [x, dm, label, mask, w, g_hm, g_uvd]):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (x, dm, label, w)]
             out = soft_argmax_decode_flat(leaves[0], leaves[1], leaves[2], mask, leaves[3],
@@ -128,8 +118,6 @@ def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
     b, j, hw = x.shape
     if g_hm.shape != x.shape or g_uvd.shape != (b, j, 3):
         raise ValueError(f"cotangents g_hm {tuple(g_hm.shape)} g_uvd {tuple(g_uvd.shape)}")
-    if g_hm.device != x.device or g_uvd.device != x.device:
-        raise ValueError(f"cotangents on {g_hm.device} / {g_uvd.device}, maps on {x.device}")
     dx, ddm = torch.empty_like(x), torch.empty_like(x)
     dlabel = torch.empty_like(label)
     dw = torch.empty((b, j), dtype=torch.float32, device=x.device)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: the soft-argmax decoder's forward
-(K1) and backward (K2) kernels, the fused conv + instance-norm unit (K3)
-and the whole hourglass (K4) vs their plain PyTorch versions, the
-wrappers' checks, the Predictor through K1, a train step through K1 and
-K2, and both inference engines through K3, K4 and K1.
+(K1) and backward (K2) kernels, the fused conv + instance-norm unit (K3),
+the whole hourglass (K4), the norm+relu backward (K5) and the ablation
+pieces (K6) vs their plain PyTorch versions, the wrappers' checks, the
+Predictor through K1, a train step through K1 and K2, and both inference
+engines through K3, K4 and K1.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -19,9 +20,12 @@ from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, draw
 from pixelwiseregression_tpu_torch.data.sources import SPECS
 from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
 from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
+from pixelwiseregression_tpu_torch.ops import ablate_pieces as tap
 from pixelwiseregression_tpu_torch.ops import cuda_fused as tfused
 from pixelwiseregression_tpu_torch.ops import cuda_hourglass as thg
+from pixelwiseregression_tpu_torch.ops import cuda_normrelu as tcn
 from pixelwiseregression_tpu_torch.ops import cuda_softargmax as tcuda
+from pixelwiseregression_tpu_torch.ops import fused_normrelu as tnr
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.train.loop import LossConfig, create_train_state, make_train_step
@@ -464,3 +468,148 @@ def test_engine_through_the_kernels_matches_its_plain_version(device, engine, dt
         print(f"{engine} {dtype} stage {s + 1}: uvd gap kernels vs plain {gap:.3e}"
               + (f", the plain engine's own bf16-vs-f32 gap {own[s]:.3e}" if dt == torch.bfloat16 else ""))
         assert gap <= bound, (s, gap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 16, 16, 128), (2, 24, 40, 24), (5, 32, 32, 64)])
+def test_normrelu_backward_kernel_matches_plain_version(device, shape, dtype):
+    """K5 vs its plain version: channel 0 at scale = bias = 0 gives exact
+    zero gradients; dx within 1 bf16 ulp of the output's scale, or in f32
+    within 1e-5 of it (the same arithmetic, the means summed in another
+    order), dscale and dbias
+    rtol 1e-4 atol 1e-2 (sums over the batch in another order). The shapes
+    take a batch that fills no tile, 24 channels (a block of 3 channel
+    groups), and pixels past one 512-pixel chunk, ragged (960) and not."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(60)
+    b, h, w, c = shape
+
+    def put(a, dtype_=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype_)
+
+    x, g = put(rng.randn(b, h, w, c) + 0.3, dt), put(rng.randn(b, h, w, c), dt)
+    scale, bias = put(1.0 + 0.2 * rng.randn(c)), put(0.1 * rng.randn(c))
+    scale[0] = bias[0] = 0.0
+    mean, inv = tnr.norm_relu_stats(x)
+    before = tcn.LAUNCHES
+    dx, ds, db = tcn.normrelu_bwd(g, x, mean, inv, scale, bias)
+    torch.cuda.synchronize()
+    assert tcn.LAUNCHES == before + 1
+    want = tnr.normrelu_bwd_plain(g, x, mean, inv, scale, bias)
+    assert dx.dtype == dt and torch.isfinite(dx.float()).all()
+    assert float(dx[..., 0].abs().max()) == 0.0 and float(ds[0]) == 0.0 and float(db[0]) == 0.0
+    if dt == torch.bfloat16:
+        assert _bf16_ulps(dx, want[0]) <= 1.0
+    else:
+        torch.testing.assert_close(dx, want[0], rtol=0, atol=1e-5 * float(want[0].abs().max()))
+    torch.testing.assert_close(ds, want[1], rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(db, want[2], rtol=1e-4, atol=1e-2)
+
+
+def test_norm_relu_cuda_backward_launches_k5(device):
+    """Autograd through ``norm_relu_cuda`` on the card: one K5 launch per
+    backward, the gradients of the plain ``norm_relu``."""
+    rng = np.random.RandomState(61)
+    x0 = torch.from_numpy(rng.randn(2, 8, 8, 32).astype(np.float32)).to(device, torch.bfloat16)
+    r = torch.from_numpy(rng.randn(2, 8, 8, 32).astype(np.float32)).to(device, torch.bfloat16)
+
+    def grads(fn):
+        leaves = [x0.clone().requires_grad_(True), torch.ones(32, device=device, requires_grad=True),
+                  torch.zeros(32, device=device, requires_grad=True)]
+        return torch.autograd.grad(fn(*leaves), leaves, r)
+
+    before = tcn.LAUNCHES
+    got = grads(tcn.norm_relu_cuda)
+    assert tcn.LAUNCHES == before + 1
+    want = grads(tnr.norm_relu)
+    assert _bf16_ulps(got[0], want[0]) <= 1.0
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", tap.XM_MODES)
+def test_build_xm_kernel_is_exact(device, mode, dtype):
+    """The tap operand and its probes on the card, bit-exact against the
+    plain version (14x10 maps: W not a power of two)."""
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.RandomState(62).randn(3, 14 * 10, 24).astype(np.float32))
+    x = x.to(device, dt)
+    before = tap.BUILD_LAUNCHES
+    got = tap.build_xm(x, 14, 10, mode)
+    torch.cuda.synchronize()
+    assert tap.BUILD_LAUNCHES == before + 1
+    want = tap.build_xm_plain(x, 14, 10, mode)
+    assert got.shape == want.shape and torch.equal(got.view(torch.int16 if dt == torch.bfloat16
+                                                             else torch.int32),
+                                                    want.view(torch.int16 if dt == torch.bfloat16
+                                                              else torch.int32))
+
+
+def test_copy_kernel_is_exact(device):
+    x = torch.randn(3, 1000, 24, device=device).to(torch.bfloat16)
+    before = tap.COPY_LAUNCHES
+    y = tap.copy(x)
+    torch.cuda.synchronize()
+    assert tap.COPY_LAUNCHES == before + 1 and torch.equal(y.view(torch.int16), x.view(torch.int16))
+
+
+@pytest.mark.parametrize("layout", ["taps", "repeat"])
+def test_xm_dots_kernel_matches_plain_version(device, layout):
+    """The products on a prebuilt operand, bf16, within 2 bf16 ulps of the
+    output's scale of the plain version's f32 products (past one 64x64 tile
+    in rows and columns, a partial 32-deep K step: K = 3*24)."""
+    rng = np.random.RandomState(63)
+    h, w, c, co = 12, 10, 24, 72
+    rows, offsets = ((h + 2) * w, (0, w, 2 * w)) if layout == "taps" else (h * w, (0, 0, 0))
+    xm = torch.from_numpy(rng.randn(3, rows, 3 * c).astype(np.float32)).to(device, torch.bfloat16)
+    wcat = torch.from_numpy((0.1 * rng.randn(3, 3 * c, co)).astype(np.float32)).to(device, torch.bfloat16)
+    before = tap.DOTS_LAUNCHES
+    got = tap.xm_dots(xm, wcat, h * w, offsets)
+    torch.cuda.synchronize()
+    assert tap.DOTS_LAUNCHES == before + 1
+    assert _bf16_ulps(got, tap.xm_dots_plain(xm, wcat, h * w, offsets)) <= 2.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_stats_apply_matches_plain_version(device, dtype):
+    """K3's statistics and apply alone: f32 within 1e-4 of the scale, bf16
+    within 2 bf16 ulps of it (K3's own bounds)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(64)
+    x = torch.from_numpy((rng.randn(3, 200, 40) + 2).astype(np.float32)).to(device, dt)
+    s = torch.from_numpy((1 + 0.1 * rng.randn(40)).astype(np.float32)).to(device)
+    b = torch.from_numpy((0.1 * rng.randn(40)).astype(np.float32)).to(device)
+    before = tap.STATS_LAUNCHES
+    got = tap.norm_stats_apply(x, s, b)
+    torch.cuda.synchronize()
+    assert tap.STATS_LAUNCHES == before + 1
+    want = tap.norm_stats_apply_plain(x, s, b)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    else:
+        assert _bf16_ulps(got, want) <= 2.0
+
+
+def test_normrelu_and_ablate_wrappers_reject_what_the_kernels_do_not_take(device):
+    x = torch.randn(2, 8, 8, 16, device=device)
+    stat = torch.zeros(2, 16, device=device)
+    p = torch.ones(16, device=device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tcn.normrelu_bwd(x[..., :12].contiguous(), x[..., :12].contiguous(), stat[:, :12],
+                         stat[:, :12], p[:12], p[:12])
+    with pytest.raises(TypeError):
+        tcn.normrelu_bwd(x.half(), x.half(), stat, stat, p, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcn.normrelu_bwd(x.transpose(1, 2), x.transpose(1, 2), stat, stat, p, p)
+    with pytest.raises(ValueError):
+        tcn.normrelu_bwd(x, x, stat.cpu(), stat, p, p)
+    flat = x.reshape(2, 64, 16)
+    with pytest.raises(TypeError):
+        tap.xm_dots(flat.repeat(1, 1, 3), torch.zeros(3, 48, 8, device=device), 64, (0, 0, 0))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tap.build_xm(flat[..., :12].contiguous(), 8, 8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tap.copy(torch.zeros(3, device=device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        tap.norm_stats_apply(flat, p.cpu(), p)
