@@ -32,7 +32,8 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 7. one f32 train step of a small model on the card against the CPU;
 8. K3 against its plain version at batch 256, bf16, for every unit kind
    that the unit engine launches at full width (and one f32 case), with
-   cuDNN's conv alone at the same shape as a partial yardstick;
+   cuDNN's conv alone at the same shape as a partial yardstick, each
+   unit's share of its bound and its ratio to cuDNN's conv;
 9. K4 against its plain version at [256, 64, 64, 128] bf16, level 4;
 10. both fused inference engines end to end at full width (NYU: 14
    joints, 2 stages, 128 features, level 4, instance norm, bf16, batch 64)
@@ -52,6 +53,7 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    rounds, each through its kernels, with the launches of K5, K3 and each
    K6 piece asserted.
 
+After the build it fails if ptxas reports a spill in K3's wgmma conv.
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
 quotes.
@@ -755,7 +757,8 @@ def phase_fused_units(device):
               f"max_abs_err={err:.3e} ({ulps:.2f} ulps of the scale, {share:.2e} of elements "
               f"> 1 ulp apart) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
               f"library_ms={lib_ms:.5f} (cuDNN conv alone, a partial yardstick) "
-              f"bound_ms={bound:.5f} ({by})")
+              f"bound_ms={bound:.5f} ({by}); share of the bound {bound / ms:.4f}, "
+              f"{ms / lib_ms:.3f}x cuDNN's conv")
         cases[(name, tag)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
                               "shape": [UNIT_BATCH, hw, hw, c, co, k]}
@@ -1187,6 +1190,21 @@ def phase_tools():
     return total
 
 
+def _check_no_spill(log, kernel):
+    """Raise unless every function of `kernel` in a fresh build's ptxas log
+    reports 0 bytes of spill (a cached build has no log: nothing to read)."""
+    if not log:
+        print(f"ptxas: cached build, no log; spills of {kernel} not read")
+        return
+    lines = log.splitlines()
+    found = [i for i, line in enumerate(lines) if "Function properties for" in line and kernel in line]
+    assert found, f"the ptxas log names no {kernel}"
+    for i in found:
+        spill = next(line for line in lines[i + 1:] if "spill stores" in line)
+        assert "0 bytes spill stores, 0 bytes spill loads" in spill, (lines[i], spill)
+    print(f"ptxas: {len(found)} instantiations of {kernel}, no spill")
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--profile"]):
         print("usage: chip_smoke.py [--profile]", file=sys.stderr)
@@ -1209,8 +1227,9 @@ def main() -> int:
     lib, log = cuda_lib.build()
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.endswith(":"):
+        if "registers" in line or "spill" in line or "wgmma" in line or line.endswith(":"):
             print("ptxas:", line.strip())
+    _check_no_spill(log, "conv_wgmma_kernel")
     if sys.argv[1:] == ["--profile"]:
         phase_profile(device)
         return 0
@@ -1272,7 +1291,10 @@ def main() -> int:
          "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
          "library_ms": head["library_ms"], "bound_ms": head["bound_ms"],
          "bound_by": head["bound_by"], "shape": head["shape"], "dtype": "bf16",
-         "unit": "head_conv: 3x3 128->128 + epilogue norm; library_ms is cuDNN's conv alone"},
+         "unit": "head_conv: 3x3 128->128 + epilogue norm; library_ms is cuDNN's conv alone",
+         "design": "bf16: wgmma m64n64k16 / m64n128k16 from shared-memory descriptors "
+                   "(128-byte swizzle), 256-pixel tiles of four warpgroups, 64-deep K steps "
+                   "over a 3-stage cp.async ring; f32: FMA"},
         {"name": "hourglass_fused", "route": "cuda", "source": source.format("hourglass"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_hourglass.py:188",
          "launches": engine_launches["fused"][1],

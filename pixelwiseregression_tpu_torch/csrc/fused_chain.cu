@@ -12,33 +12,50 @@
 // normalised input. Statistics are the exact two-pass mean and biased
 // variance per (sample, channel) in f32, eps inside the rsqrt.
 //
-// What bounds it: tensor-core operations at the full-width shapes (the 3x3
-// 128->128 head unit at batch 256 is 309 GFLOP against 0.54 GB of
-// activations), the statistics and the apply by device-memory bytes. The TPU
-// kernel kept a whole sample ([HW, C], 1-2 MiB) in VMEM to take both passes
-// of the statistics there; an SM's 227 KB of shared memory cannot hold one,
-// so here the statistics go through device memory:
+// What bounds it, at batch 256: tensor-core operations for the 3x3 units at
+// 64->128 and 128->128 (the head unit is 309 GFLOP against 0.54 GB of
+// activations), device-memory bytes for the rest (the 1x1 units, and the
+// 3x3 units at 32->64 and 64->64, whose operations take less time than
+// their bytes). The TPU kernel kept a whole sample ([HW, C], 1-2 MiB) in
+// VMEM to take both passes of the statistics there; an SM's 227 KB of
+// shared memory cannot hold one, so here the statistics go through device
+// memory, and a unit is three kernels:
 //   * norm_stats_kernel: one block per (sample, 32 channels), 8 pixel rows
 //     of 32 channel lanes, both passes in a fixed order (deterministic, no
 //     atomics); it folds the affine into a = rsqrt(var+eps)*scale and
 //     b = bias - mean*a;
-//   * conv_kernel: an implicit GEMM over M = B*H*W pixels, N = Co, K = k*k*C,
-//     64x64 output tiles per 128-thread block, K steps of one tap by 32
-//     channels staged in shared memory; the prologue is applied as each
-//     input tile loads; bf16 runs on the tensor cores (wmma, f32
-//     accumulators), f32 by f32 FMA (never TF32); the epilogue adds the bias
-//     (and the skip) from a shared-memory copy of the accumulators;
+//   * the conv, an implicit GEMM over M = B*H*W pixels, N = Co, K = k*k*C,
+//     with the prologue applied to each input tile once it has landed:
+//       - bf16 (conv_wgmma_kernel): 256 pixels by 64 or 128 output channels
+//         per 512-thread block, four warpgroups of 64 rows, each running
+//         wgmma.mma_async m64n64k16 or m64n128k16 (sm90_wgmma.cuh) from
+//         shared-memory descriptors into f32 registers. K steps are 64 deep
+//         (8 chunks of 8 channels over the flattened taps x channels, so
+//         C = 32 takes two taps a step), in rows of 128 bytes under the
+//         128-byte swizzle, over a ring of three stages filled by cp.async:
+//         the products of step s run while the threads issue step s+2's
+//         copies and wait for, normalise and fence step s+1's; one barrier
+//         per step. Eight threads copy one pixel's (or one weight row's)
+//         128 contiguous bytes, which the swizzle spreads over all 32 banks:
+//         with 8 rows x 64 bytes a warp, the copies, not the products, set
+//         the loop's speed;
+//       - f32 (conv_f32_kernel): 64x64 tiles per 128-thread block, K steps
+//         of one tap by 32 channels, by f32 FMA (never TF32);
+//     the epilogue adds the bias (and the skip) from a shared-memory copy of
+//     the accumulators, with K4's split taps (even and odd taps summed
+//     apart) as two passes over the K loop in bf16;
 //   * norm_apply_kernel: the epilogue norm, one pass over the conv output.
 // A unit therefore reads its input twice for the prologue statistics and
-// once for the conv, and writes the pre-norm conv output once more when it
-// has an epilogue. wgmma, TMA, a pipelined K loop and statistics summed by
-// the conv's own epilogue are later work.
-
-#include <mma.h>
-
-#include <type_traits>
+// once per tap for the conv (from L2 after the first), and writes the
+// pre-norm conv output once more when it has an epilogue. Every block
+// streams the whole weight tensor through L2. Later work: TMA loads (with
+// multicast of the weights across a cluster) and a warp-specialised
+// producer for the ring, a persistent grid, the epilogue statistics summed
+// by the conv itself with the apply folded into the next unit's prologue,
+// and a tile that loads its input once for all nine taps.
 
 #include "fused_common.cuh"
+#include "sm90_wgmma.cuh"
 #include "vec8.cuh"
 
 namespace fused {
@@ -51,13 +68,46 @@ using pwr::round_act;
 using pwr::store8;
 using pwr::zero8;
 
+// f32 conv
 constexpr int kBM = 64;   // output pixels per block
 constexpr int kBN = 64;   // output channels per block
 constexpr int kBK = 32;   // input channels per K step (of one tap)
 constexpr int kConvThreads = 128;
-constexpr int kCStride = kBN + 4;  // f32 accumulator tile rows (wmma ldm % 4 == 0)
+constexpr int kAStride = kBK + 4;  // shared-memory rows, 16-byte aligned
+constexpr int kBStride = kBN + 4;
+constexpr int kCStride = kBN + 4;  // f32 accumulator tile rows
+// bf16 conv (wgmma)
+constexpr int kWgBM = 256;                          // output pixels per block: four warpgroups
+constexpr int kWgBK = 64;                           // K slots per step
+constexpr int kWgThreads = 512;
+constexpr int kWgStages = 3;                        // stages of the ring
+constexpr int kChunks = kWgBK / kVec;               // 16-byte chunks per row and step
+constexpr int kRowBytes = kWgBK * 2;                // one row of a step: 128 bytes
+constexpr int kAtom = 8 * kRowBytes;                // 8 rows: the 128-byte swizzle's repeat
+constexpr int kRowsPerPass = kWgThreads / kChunks;  // rows the threads copy at once
+constexpr int kWgAPer = kWgBM / kRowsPerPass;       // A chunks per thread and step
+constexpr int kWgABytes = kWgBM * kRowBytes;
+// statistics and apply
 constexpr int kStatRows = 8;       // pixel rows of the statistics block
 constexpr int kApplyThreads = 256;
+
+template <int BN>
+__host__ __device__ constexpr int wg_stage_bytes() { return kWgABytes + kWgBK * BN * 2; }
+template <int BN>
+__host__ __device__ constexpr int wg_cs_stride() { return BN + 8; }  // float2 stores free of conflicts
+
+template <int BN>
+constexpr size_t wg_smem_bytes() {
+  const size_t ring = kWgStages * static_cast<size_t>(wg_stage_bytes<BN>());
+  const size_t cs = static_cast<size_t>(kWgBM) * wg_cs_stride<BN>() * sizeof(float);
+  return (ring > cs ? ring : cs) + kAtom;  // + the alignment of the ring to an atom
+}
+
+constexpr size_t f32_smem_bytes() {
+  const size_t main = static_cast<size_t>(kBM * kAStride + kBK * kBStride) * sizeof(float);
+  const size_t epi = static_cast<size_t>(kBM) * kCStride * sizeof(float);
+  return main > epi ? main : epi;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -66,19 +116,6 @@ __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// shared-memory rows: 16-byte aligned, wmma ldm a multiple of 8 bf16 values
-template <typename T>
-__host__ __device__ constexpr int a_stride() { return std::is_same<T, float>::value ? kBK + 4 : kBK + 8; }
-template <typename T>
-__host__ __device__ constexpr int b_stride() { return std::is_same<T, float>::value ? kBN + 4 : kBN + 8; }
-
-template <typename T, bool kSplit>
-constexpr size_t conv_smem_bytes() {
-  const size_t main = static_cast<size_t>(kBM * a_stride<T>() + kBK * b_stride<T>()) * sizeof(T);
-  const size_t epi = static_cast<size_t>(kSplit ? 2 : 1) * kBM * kCStride * sizeof(float);
-  return main > epi ? main : epi;
 }
 
 // ---------------------------------------------------------------- statistics
@@ -156,33 +193,61 @@ __global__ void __launch_bounds__(kApplyThreads) norm_apply_kernel(
 // ---------------------------------------------------------------- conv
 
 template <typename T>
-__device__ __forceinline__ void prologue(float v[kVec], const float* __restrict__ a,
-                                         const float* __restrict__ b, int mode) {
+__device__ __forceinline__ float prologue1(float v, float a, float b, int mode) {
+  if (mode == kProF32) return fmaxf(__fadd_rn(__fmul_rn(v, a), b), 0.f);
+  return fmaxf(round_act<T>(__fadd_rn(round_act<T>(__fmul_rn(v, round_act<T>(a))), round_act<T>(b))), 0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ void prologue(float v[kVec], const float* a, const float* b, int mode) {
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    if (mode == kProF32) {
-      v[k] = fmaxf(__fadd_rn(__fmul_rn(v[k], a[k]), b[k]), 0.f);
-    } else {
-      const float ad = round_act<T>(a[k]);
-      const float bd = round_act<T>(b[k]);
-      v[k] = fmaxf(round_act<T>(__fadd_rn(round_act<T>(__fmul_rn(v[k], ad)), bd)), 0.f);
+  for (int k = 0; k < kVec; ++k) v[k] = prologue1<T>(v[k], a[k], b[k], mode);
+}
+
+// y = [skip +] round(Cs + bias) for a [kRows, kCols] tile of f32 sums in
+// shared memory (rows 16-byte aligned); each thread keeps 8 output channels
+// and steps down the rows.
+template <typename T, int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void store_tile(const float* Cs, int cs_stride, const ConvArgs& p,
+                                           int m0, int n0, int M) {
+  constexpr int kPerRow = kCols / kVec;
+  static_assert(kThreads % kPerRow == 0, "a thread keeps its columns");
+  const int col = (threadIdx.x % kPerRow) * kVec;
+  const int nn = n0 + col;
+  if (nn >= p.Co) return;
+  const T* __restrict__ skip = static_cast<const T*>(p.skip);
+  T* __restrict__ y = static_cast<T*>(p.y);
+  float bias[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) bias[k] = p.bias[nn + k];
+  for (int row = threadIdx.x / kPerRow; row < kRows && m0 + row < M; row += kThreads / kPerRow) {
+    const size_t m = static_cast<size_t>(m0 + row);
+    const float4 lo = *reinterpret_cast<const float4*>(Cs + row * cs_stride + col);
+    const float4 hi = *reinterpret_cast<const float4*>(Cs + row * cs_stride + col + 4);
+    const float sum[kVec] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    float v[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = round_act<T>(__fadd_rn(sum[k], bias[k]));
+    if (skip != nullptr) {
+      float sk[kVec];
+      load8(skip + m * p.Co + nn, sk);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) v[k] = __fadd_rn(v[k], sk[k]);
     }
+    store8(y + m * p.Co + nn, v);
   }
 }
 
-// grid (ceil(M/kBM), ceil(Co/kBN)), kConvThreads threads.
-template <typename T, bool kSplit>
-__global__ void __launch_bounds__(kConvThreads) conv_kernel(const ConvArgs p) {
+// f32: grid (ceil(M/kBM), ceil(Co/kBN)), kConvThreads threads.
+template <bool kSplit>
+__global__ void __launch_bounds__(kConvThreads) conv_f32_kernel(const ConvArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int AS = a_stride<T>();
-  constexpr int BS = b_stride<T>();
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + kBM * AS;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + kBM * kAStride;
   float* Cs = reinterpret_cast<float*>(smem);  // reuses the tiles after the K loop
-  float* Cs2 = Cs + kBM * kCStride;
 
-  const T* __restrict__ x = static_cast<const T*>(p.x);
-  const T* __restrict__ w = static_cast<const T*>(p.w);
+  const float* __restrict__ x = static_cast<const float*>(p.x);
+  const float* __restrict__ w = static_cast<const float*>(p.w);
   const int HW = p.H * p.W;
   const int M = p.B * HW;
   const int m0 = blockIdx.x * kBM;
@@ -204,26 +269,12 @@ __global__ void __launch_bounds__(kConvThreads) conv_kernel(const ConvArgs p) {
   const int brow = threadIdx.x >> 2;
   const int bq = threadIdx.x & 3;
 
-  using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
   float facc[4][8], facc2[4][8];
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;  // bf16: warp tile rows wr*32, cols wc*32
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;  // f32: rows ty*4, cols tx*8
-  if constexpr (std::is_same<T, float>::value) {
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;  // rows ty*4, cols tx*8
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) facc[i][j] = facc2[i][j] = 0.f;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fill_fragment(acc[i][j], 0.f);
-        wmma::fill_fragment(acc2[i][j], 0.f);
-      }
-  }
+    for (int j = 0; j < 8; ++j) facc[i][j] = facc2[i][j] = 0.f;
 
   const int taps = p.k * p.k;
   for (int tap = 0; tap < taps; ++tap) {
@@ -236,16 +287,16 @@ __global__ void __launch_bounds__(kConvThreads) conv_kernel(const ConvArgs p) {
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
         const int cc = c0 + ahalf * 16 + v * kVec;
-        T* dst = As + arow * AS + ahalf * 16 + v * kVec;
+        float* dst = As + arow * kAStride + ahalf * 16 + v * kVec;
         if (avalid && cc < p.C) {
-          const T* src = x + ((static_cast<size_t>(an) * p.H + ys) * p.W + xs) * p.C + cc;
+          const float* src = x + ((static_cast<size_t>(an) * p.H + ys) * p.W + xs) * p.C + cc;
           if (p.pro_mode == kProNone) {
             copy8(src, dst);
           } else {
             float f[kVec];
             load8(src, f);
             const size_t nc = static_cast<size_t>(an) * p.C + cc;
-            prologue<T>(f, p.pro_a + nc, p.pro_b + nc, p.pro_mode);
+            prologue<float>(f, p.pro_a + nc, p.pro_b + nc, p.pro_mode);
             store8(dst, f);
           }
         } else {
@@ -257,104 +308,299 @@ __global__ void __launch_bounds__(kConvThreads) conv_kernel(const ConvArgs p) {
       for (int v = 0; v < 2; ++v) {
         const int c = c0 + brow;
         const int nn = n0 + bq * 16 + v * kVec;
-        T* dst = Bs + brow * BS + bq * 16 + v * kVec;
+        float* dst = Bs + brow * kBStride + bq * 16 + v * kVec;
         if (c < p.C && nn < p.Co)
           copy8(w + (static_cast<size_t>(tap) * p.C + c) * p.Co + nn, dst);
         else
           zero8(dst);
       }
       __syncthreads();
-      if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 8
-        for (int kk = 0; kk < kBK; ++kk) {
-          float av[4], bv[8];
+      for (int kk = 0; kk < kBK; ++kk) {
+        float av[4], bv[8];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = As[(ty * 4 + i) * AS + kk];
+        for (int i = 0; i < 4; ++i) av[i] = As[(ty * 4 + i) * kAStride + kk];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) bv[j] = Bs[kk * BS + tx * 8 + j];
-          if (odd) {
+        for (int j = 0; j < 8; ++j) bv[j] = Bs[kk * kBStride + tx * 8 + j];
+        if (odd) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int j = 0; j < 8; ++j) facc2[i][j] = fmaf(av[i], bv[j], facc2[i][j]);
-          } else {
+            for (int j = 0; j < 8; ++j) facc2[i][j] = fmaf(av[i], bv[j], facc2[i][j]);
+        } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(av[i], bv[j], facc[i][j]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < kBK; ks += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wr * 32 + i * 16) * AS + ks, AS);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Bs + ks * BS + wc * 32 + j * 16, BS);
-          if (odd) {
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], fa[i], fb[j], acc2[i][j]);
-          } else {
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-          }
+            for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(av[i], bv[j], facc[i][j]);
         }
       }
       __syncthreads();
     }
   }
 
-  // accumulators -> shared memory (over the dead tiles)
-  if constexpr (std::is_same<T, float>::value) {
+  // accumulators -> shared memory (over the dead tiles); split taps: the two sums added
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        Cs[(ty * 4 + i) * kCStride + tx * 8 + j] = facc[i][j];
-        if (kSplit) Cs2[(ty * 4 + i) * kCStride + tx * 8 + j] = facc2[i][j];
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int off = (wr * 32 + i * 16) * kCStride + wc * 32 + j * 16;
-        wmma::store_matrix_sync(Cs + off, acc[i][j], kCStride, wmma::mem_row_major);
-        if (kSplit) wmma::store_matrix_sync(Cs2 + off, acc2[i][j], kCStride, wmma::mem_row_major);
-      }
-  }
+    for (int j = 0; j < 8; ++j)
+      Cs[(ty * 4 + i) * kCStride + tx * 8 + j] = kSplit ? __fadd_rn(facc[i][j], facc2[i][j]) : facc[i][j];
   __syncthreads();
+  store_tile<float, kBM, kBN, kConvThreads>(Cs, kCStride, p, m0, n0, M);
+}
 
-  // bias, rounding, skip; 8 output channels per thread-step
-  const T* __restrict__ skip = static_cast<const T*>(p.skip);
-  T* __restrict__ y = static_cast<T*>(p.y);
-  for (int e = threadIdx.x; e < kBM * kBN / kVec; e += kConvThreads) {
-    const int row = e / (kBN / kVec);
-    const int col = (e - row * (kBN / kVec)) * kVec;
-    const int m = m0 + row;
-    const int nn = n0 + col;
-    if (m >= M || nn >= p.Co) continue;
-    float v[kVec];
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      float s = Cs[row * kCStride + col + k];
-      if (kSplit) s = __fadd_rn(round_act<T>(s), round_act<T>(Cs2[row * kCStride + col + k]));
-      v[k] = round_act<T>(__fadd_rn(s, p.bias[nn + k]));
+// two f32 values rounded to nearest even into a bf16 pair
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
+}
+
+// 16 bytes from device to shared memory without passing through registers
+// (cp.async, through L2 only), zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in rows of 128 bytes
+// under the 128-byte swizzle: chunk c of row r sits at slot c ^ (r % 8).
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
+}
+
+// K position of a chunk: the tap (index into the pass's taps) and the chunk
+// of 8 channels within it, cpt chunks per tap.
+struct KPos {
+  int tap, chunk;
+  __device__ __forceinline__ KPos plus(int by, int cpt) const {
+    KPos q{tap, chunk + by};
+    while (q.chunk >= cpt) {
+      q.chunk -= cpt;
+      ++q.tap;
     }
-    if (skip != nullptr) {
-      float sk[kVec];
-      load8(skip + static_cast<size_t>(m) * p.Co + nn, sk);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) v[k] = __fadd_rn(v[k], sk[k]);
-    }
-    store8(y + static_cast<size_t>(m) * p.Co + nn, v);
+    return q;
   }
+};
+
+// bf16: grid (ceil(M/kWgBM), ceil(Co/BN)), kWgThreads threads; warpgroup wg
+// computes tile rows wg*64 + [0, 64) by BN output channels.
+//
+// A K step is 64 channels: one 128-byte row per pixel of A [256 pixels, 64]
+// (K-major) and per K row of B [64, BN] (MN-major, in 64-column atoms), both
+// under the 128-byte swizzle, 8 rows to an atom of 1024 bytes. A's
+// descriptor: SBO (next 8 rows) one atom, the k16 slice ks 32*ks bytes into
+// the row; B's: LBO (next 64 columns) one atom, SBO (next 8 K rows) BN/64
+// atoms, the slice ks 2*ks atom rows down. Each group of 8 threads copies
+// one 128-byte row (a pixel's 64 channels, or 64 output channels of a
+// weight row) with 16-byte cp.async: contiguous in device memory, and over
+// all 32 banks once in shared memory. A prologue is applied in place by the
+// thread that copied the chunk, once its copies have landed, before the
+// barrier that hands the stage to the tensor cores.
+//
+// The ring holds kWgStages stages, kWgStages-1 steps ahead: step s's
+// products are issued right after the barrier and run while the threads
+// issue step s+kWgStages-1's copies and then wait for, normalise and fence
+// step s+1's; wgmma.wait_group 0 before the next barrier frees the stage
+// the next copies refill.
+template <int BN, bool kSplit>
+__global__ void __launch_bounds__(kWgThreads, 1) conv_wgmma_kernel(const ConvArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int tap_off[9];  // element offset of each tap's input pixel
+  __shared__ int tap_dy[9], tap_dx[9];
+  constexpr int kAtomsN = BN / 64;  // 64-column atoms of B
+  constexpr int kBPer = kWgBK * BN / kVec / kWgThreads;
+  constexpr int kStage = wg_stage_bytes<BN>();
+  // the swizzle repeats every atom: the ring starts on an atom boundary
+  unsigned char* smem =
+      smem_raw + ((kAtom - (__cvta_generic_to_shared(smem_raw) & (kAtom - 1))) & (kAtom - 1));
+  const __nv_bfloat16* __restrict__ x = static_cast<const __nv_bfloat16*>(p.x);
+  const __nv_bfloat16* __restrict__ w = static_cast<const __nv_bfloat16*>(p.w);
+  const int t = threadIdx.x;
+  const int wg = t >> 7;
+  const int HW = p.H * p.W;
+  const int M = p.B * HW;
+  const int m0 = blockIdx.x * kWgBM;
+  const int n0 = blockIdx.y * BN;
+  const int cpt = p.C / kVec;  // K chunks per tap
+  if (t < p.k * p.k) {
+    const int r = p.k >> 1;
+    tap_dy[t] = t / p.k - r;
+    tap_dx[t] = t % p.k - r;
+    tap_off[t] = (tap_dy[t] * p.W + tap_dx[t]) * p.C;
+  }
+
+  // A: chunk c of tile rows t/8 + 64i; each row resolves its own (sample,
+  // y, x), since a tile may span samples; rows past M copy zeros
+  const int c = t & (kChunks - 1);
+  const int arow = t >> 3;
+  int am[kWgAPer], ay[kWgAPer], ax[kWgAPer];
+#pragma unroll
+  for (int i = 0; i < kWgAPer; ++i) {
+    const int m = m0 + arow + kRowsPerPass * i;
+    am[i] = min(m, M - 1);
+    const int pix = am[i] % HW;
+    ay[i] = m < M ? pix / p.W : -(1 << 28);
+    ax[i] = pix % p.W;
+  }
+  const int n_first = m0 / HW;
+  const bool one_sample = (min(m0 + kWgBM, M) - 1) / HW == n_first;
+  // B: chunk c of output channels n0 + bcol, K rows brow(i)
+  const int batom = (t >> 3) % kAtomsN;
+  const int bcol = batom * 64 + c * kVec;
+  const bool bon = n0 + bcol < p.Co;
+
+  int tap0 = 0, tstride = 1, ntaps = p.k * p.k;
+  unsigned amask = 0;  // per stage, 4 bits: the A chunks that hold input data
+
+  // copies of the step whose first chunk is at `at` into stage `stage`
+  auto issue = [&](KPos at, int stage) {
+    unsigned char* sa = smem + stage * kStage;
+    unsigned char* sb = sa + kWgABytes;
+    const KPos a = at.plus(c, cpt);
+    const bool kin = a.tap < ntaps;
+    const int tap = kin ? tap0 + tstride * a.tap : 0;
+    const int off = tap_off[tap] + a.chunk * kVec;
+    const int dy = tap_dy[tap], dx = tap_dx[tap];
+    unsigned m = 0;
+#pragma unroll
+    for (int i = 0; i < kWgAPer; ++i) {
+      const int ys = ay[i] + dy, xs = ax[i] + dx;
+      const bool ok = kin && ys >= 0 && ys < p.H && xs >= 0 && xs < p.W;
+      cp_async16(sa + sw128(arow + kRowsPerPass * i, c),
+                 ok ? x + static_cast<size_t>(am[i]) * p.C + off : x, ok);
+      m |= static_cast<unsigned>(ok) << i;
+    }
+    amask = (amask & ~(0xfu << (4 * stage))) | (m << (4 * stage));
+#pragma unroll
+    for (int i = 0; i < kBPer; ++i) {
+      const int brow = (i * kRowsPerPass + (t >> 3)) / kAtomsN;  // K row of the step
+      const KPos b = at.plus(brow >> 3, cpt);
+      const bool ok = bon && b.tap < ntaps;
+      const int row = (tap0 + tstride * b.tap) * p.C + b.chunk * kVec + (brow & 7);
+      cp_async16(sb + ((brow >> 3) * kAtomsN + batom) * kAtom + sw128(brow & 7, c),
+                 ok ? w + static_cast<size_t>(row) * p.Co + n0 + bcol : w, ok);
+    }
+  };
+  // the prologue, in place, on this thread's landed A chunks of stage `stage`
+  auto normalise = [&](KPos at, int stage) {
+    const unsigned m = (amask >> (4 * stage)) & 0xfu;
+    if (p.pro_mode == kProNone || m == 0) return;
+    unsigned char* sa = smem + stage * kStage;
+    const int ac = at.plus(c, cpt).chunk * kVec;
+    float ca[kVec], cb[kVec];
+    auto coefs = [&](int n) {
+      const size_t nc = static_cast<size_t>(n) * p.C + ac;  // 32-byte aligned
+      load8(p.pro_a + nc, ca);
+      load8(p.pro_b + nc, cb);
+    };
+    if (one_sample) coefs(n_first);
+#pragma unroll
+    for (int i = 0; i < kWgAPer; ++i) {
+      if (!((m >> i) & 1u)) continue;
+      if (!one_sample) coefs(am[i] / HW);
+      uint4* chunk = reinterpret_cast<uint4*>(sa + sw128(arow + kRowsPerPass * i, c));
+      const uint4 v = *chunk;
+      uint32_t word[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < kVec / 2; ++j) {  // bf16 pairs: widen, normalise, round
+        const float lo = prologue1<__nv_bfloat16>(__uint_as_float(word[j] << 16), ca[2 * j], cb[2 * j],
+                                                  p.pro_mode);
+        const float hi = prologue1<__nv_bfloat16>(__uint_as_float(word[j] & 0xffff0000u),
+                                                  ca[2 * j + 1], cb[2 * j + 1], p.pro_mode);
+        word[j] = pack2(lo, hi);
+      }
+      *chunk = make_uint4(word[0], word[1], word[2], word[3]);
+    }
+  };
+
+  float acc[BN / 2];
+  __nv_bfloat162 even[kSplit ? BN / 4 : 1];  // split taps: the even taps' sum, rounded
+  __syncthreads();                           // the tap table
+#pragma unroll 1
+  for (int pass = 0; pass < (kSplit ? 2 : 1); ++pass) {
+    if (kSplit) {
+      tap0 = pass;
+      tstride = 2;
+      ntaps = (p.k * p.k - pass + 1) / 2;
+    }
+    const int steps = (ntaps * cpt + kChunks - 1) / kChunks;
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    KPos load_at{0, 0}, use_at{0, 0};
+    int load_stage = 0, use_stage = 0;
+#pragma unroll
+    for (int j = 0; j < kWgStages - 1; ++j) {
+      if (j < steps) issue(load_at, load_stage);
+      cp_async_commit();
+      load_at = load_at.plus(kChunks, cpt);
+      load_stage = load_stage + 1 == kWgStages ? 0 : load_stage + 1;
+    }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kWgStages - 2>();  // this thread's copies of step s
+      normalise(use_at, use_stage);
+      use_at = use_at.plus(kChunks, cpt);
+      sm90::fence_proxy_async();
+      sm90::wait<0>();                 // this warpgroup's products of step s-1
+      sm90::fence_operands(acc);
+      __syncthreads();                 // step s in place; step s-1's stage free
+      const unsigned char* sa = smem + use_stage * kStage + wg * 64 * kRowBytes;
+      const unsigned char* sb = smem + use_stage * kStage + kWgABytes;
+      sm90::arrive();
+#pragma unroll
+      for (int ks = 0; ks < kWgBK / 16; ++ks) {
+        const uint64_t da = sm90::desc(sa + ks * 32, 16, kAtom, sm90::kSwizzle128);
+        const uint64_t db = sm90::desc(sb + ks * 2 * kAtomsN * kAtom, kAtom, kAtomsN * kAtom,
+                                       sm90::kSwizzle128);
+        if constexpr (BN == 64)
+          sm90::mma_m64n64k16(acc, da, db);
+        else
+          sm90::mma_m64n128k16(acc, da, db);
+      }
+      sm90::commit();
+      use_stage = use_stage + 1 == kWgStages ? 0 : use_stage + 1;
+      if (s + kWgStages - 1 < steps) issue(load_at, load_stage);  // while the products run
+      cp_async_commit();
+      load_at = load_at.plus(kChunks, cpt);
+      load_stage = load_stage + 1 == kWgStages ? 0 : load_stage + 1;
+    }
+    sm90::wait<0>();
+    sm90::fence_operands(acc);
+    __syncthreads();  // every warpgroup is done with the ring
+    if constexpr (kSplit) {
+      if (pass == 0) {
+#pragma unroll
+        for (int q = 0; q < BN / 4; ++q) even[q] = __floats2bfloat162_rn(acc[2 * q], acc[2 * q + 1]);
+      }
+    }
+  }
+
+  // accumulators -> shared memory (over the ring); split taps: round(even) + round(odd)
+  float* Cs = reinterpret_cast<float*>(smem);
+  constexpr int CS = wg_cs_stride<BN>();
+  const int row0 = wg * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
+  const int col0 = 2 * (t & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (kSplit) {
+        const float2 e = __bfloat1622float2(even[2 * j + h]);
+        v0 = __fadd_rn(e.x, round_act<__nv_bfloat16>(v0));
+        v1 = __fadd_rn(e.y, round_act<__nv_bfloat16>(v1));
+      }
+      *reinterpret_cast<float2*>(Cs + (row0 + 8 * h) * CS + 8 * j + col0) = make_float2(v0, v1);
+    }
+  __syncthreads();
+  store_tile<__nv_bfloat16, kWgBM, BN, kWgThreads>(Cs, CS, p, m0, n0, M);
 }
 
 template <typename T>
@@ -376,12 +622,32 @@ cudaError_t launch_apply(const void* y, const float* a, const float* b, const vo
   return cudaGetLastError();
 }
 
-template <typename T, bool kSplit>
-cudaError_t launch_conv(const ConvArgs& p, cudaStream_t s) {
+template <bool kSplit>
+cudaError_t launch_conv_f32(const ConvArgs& p, cudaStream_t s) {
   const size_t m = static_cast<size_t>(p.B) * p.H * p.W;
   const dim3 grid(static_cast<unsigned>((m + kBM - 1) / kBM), (p.Co + kBN - 1) / kBN);
-  conv_kernel<T, kSplit><<<grid, kConvThreads, conv_smem_bytes<T, kSplit>(), s>>>(p);
+  conv_f32_kernel<kSplit><<<grid, kConvThreads, f32_smem_bytes(), s>>>(p);
   return cudaGetLastError();
+}
+
+template <int BN, bool kSplit>
+cudaError_t launch_conv_wgmma(const ConvArgs& p, cudaStream_t s) {
+  constexpr size_t smem = wg_smem_bytes<BN>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_wgmma_kernel<BN, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const size_t m = static_cast<size_t>(p.B) * p.H * p.W;
+  const dim3 grid(static_cast<unsigned>((m + kWgBM - 1) / kWgBM), (p.Co + BN - 1) / BN);
+  conv_wgmma_kernel<BN, kSplit><<<grid, kWgThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// 128 output channels a block where Co allows it, but 64 with split taps,
+// whose second accumulator would not fit beside 128 columns
+template <bool kSplit>
+cudaError_t launch_conv_bf16(const ConvArgs& p, cudaStream_t s) {
+  if (kSplit || p.Co < 128) return launch_conv_wgmma<64, kSplit>(p, s);
+  return launch_conv_wgmma<128, false>(p, s);
 }
 
 }  // namespace
@@ -399,10 +665,8 @@ cudaError_t norm_apply(bool bf16, const void* y, const float* a, const float* b,
 }
 
 cudaError_t conv(bool bf16, const ConvArgs& p, cudaStream_t s) {
-  if (bf16)
-    return p.split_taps ? launch_conv<__nv_bfloat16, true>(p, s)
-                        : launch_conv<__nv_bfloat16, false>(p, s);
-  return p.split_taps ? launch_conv<float, true>(p, s) : launch_conv<float, false>(p, s);
+  if (bf16) return p.split_taps ? launch_conv_bf16<true>(p, s) : launch_conv_bf16<false>(p, s);
+  return p.split_taps ? launch_conv_f32<true>(p, s) : launch_conv_f32<false>(p, s);
 }
 
 }  // namespace fused
