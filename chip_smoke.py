@@ -47,13 +47,16 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    autograd backward of relu(instance_norm);
 13. each K6 piece (copy, build_xm and its probes, xm_dots, K3's statistics
    and apply alone) at the head shape, batch 256, against its plain
-   version, timed beside Tensor.copy_ and three torch.matmul calls;
+   version, timed beside Tensor.copy_ (in turns, with both spreads) and
+   three torch.matmul calls;
 14. the tools slice: the five A/B and ablation tools of the port
    (pixelwiseregression_tpu_torch/tools) at their default shapes with few
    rounds, each through its kernels, with the launches of K5, K3 and each
-   K6 piece asserted.
+   K6 piece asserted, and the head unit's dots_only, conv_only and full
+   side by side.
 
-After the build it fails if ptxas reports a spill in K3's wgmma conv.
+After the build it fails if ptxas reports a spill in K3's wgmma conv or
+in K6's xm_dots (the same loop).
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
 quotes.
@@ -141,19 +144,32 @@ PROFILE_GROUPS = (
 
 def _median_ms(fn, runs=7, iters=20):
     """Median over ``runs`` of the mean time of ``iters`` back-to-back calls, by CUDA events."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
+    return _interleaved_ms([fn], runs, iters)[0][0]
+
+
+def _interleaved_ms(fns, runs=7, iters=20):
+    """For each of ``fns``, ``runs`` samples of the mean time of ``iters``
+    back-to-back calls by CUDA events, the functions taking turns within
+    each run; returns each one's (median, spread = (max - min) / median)."""
+    for fn in fns:
+        for _ in range(3):
             fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    times = [[] for _ in fns]
+    for _ in range(runs):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end) / iters)
+    out = []
+    for ts in times:
+        med = statistics.median(ts)
+        out.append((med, (max(ts) - min(ts)) / med))
+    return out
 
 
 def phase_kernel(cs, plain, device):
@@ -1056,10 +1072,9 @@ def phase_ablate(device):
     act = 2 * x.numel()
     out = {}
 
-    def record(name, err, kernel, plain, library, bound, note):
-        ms = _median_ms(kernel)
+    def record(name, err, kernel, plain, library, bound, note, timed=None):
+        ms, lib_ms = timed or (_median_ms(kernel), _median_ms(library) if library else None)
         plain_ms = _median_ms(plain, runs=3, iters=3)
-        lib_ms = _median_ms(library) if library is not None else None
         bms, by = bound
         print(f"kernel {name} [{b},{hw},{c}] bf16: max_abs_err={err:.3e}{note} kernel_ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms="
@@ -1074,8 +1089,16 @@ def phase_ablate(device):
     torch.cuda.synchronize()
     assert torch.equal(bits(y), bits(x)), "copy is not exact"
     dst = torch.empty_like(x)
+    # the copy against Tensor.copy_ in turns: slower only if its median
+    # exceeds copy_'s by more than the larger of the two spreads
+    (ms, spread), (lib_ms, lib_spread) = _interleaved_ms([lambda: ap.copy(x), lambda: dst.copy_(x)])
+    verdict = "slower" if ms - lib_ms > max(spread, lib_spread) * lib_ms else "no slower"
+    print(f"kernel ablate_copy vs Tensor.copy_ [{b},{hw},{c}] bf16, 7 turns of 20 calls each: "
+          f"copy {ms:.5f} ms (spread {spread:.4f}), copy_ {lib_ms:.5f} ms (spread "
+          f"{lib_spread:.4f}): {ms / lib_ms:.4f}x, {verdict}")
     record("ablate_copy", 0.0, lambda: ap.copy(x), lambda: x.clone(), lambda: dst.copy_(x),
-           _bound(0, 2 * act, "bf16"), " (bit-exact)")
+           _bound(0, 2 * act, "bf16"), " (bit-exact)", timed=(ms, lib_ms))
+    out["ablate_copy"].update(spread=spread, library_spread=lib_spread, verdict=verdict)
     del y, dst
 
     for mode in ap.XM_MODES:
@@ -1130,11 +1153,15 @@ def phase_ablate(device):
     torch.cuda.synchronize()
     serr, sulps, sshare = _rounding_gap(got, want)
     assert sulps <= 2.0, f"xm_dots at the stem shape: {sulps:.2f} bf16 ulps of the scale"
+    sms = _median_ms(lambda: ap.xm_dots(xr, w2, hws, (0, 0, 0)))
+    sbound, sby = _bound(2 * b * hws * 3 * 192 * 128, 2 * (xr.numel() + got.numel() + w2.numel()),
+                         "bf16")
     print(f"kernel ablate_build_xm [{b},{hws},64] bf16: probe_cat and repeat bit-exact; "
           f"kernel ablate_xm_dots on the repeat operand [{b},{hws},192] x w2 [3,192,128], offsets "
           f"(0,0,0): max_abs_err={serr:.3e} ({sulps:.2f} ulps of the scale, {sshare:.2e} of "
-          f"elements > 1 ulp apart)")
-    out["ablate_xm_dots"]["stem"] = {"shape": [b, hws, 192], "max_abs_err": serr, "ulps": sulps}
+          f"elements > 1 ulp apart) kernel_ms={sms:.5f} bound_ms={sbound:.5f} ({sby})")
+    out["ablate_xm_dots"]["stem"] = {"shape": [b, hws, 192], "max_abs_err": serr, "ulps": sulps,
+                                     "ms": sms, "bound_ms": sbound, "bound_by": sby}
     del x2, w2, xr, got, want
     _free()
 
@@ -1166,7 +1193,7 @@ TOOL_ARGS = ["--rounds", "3", "--iters", "3"]
 def phase_tools():
     """The tools slice: each tool's main() with every kernel counter set to 0
     just before it and read just after; returns the launches by counter,
-    summed over the tools."""
+    summed over the tools. Prints the head unit's pieces side by side."""
     import importlib
 
     from pixelwiseregression_tpu_torch.tools import ab_common
@@ -1186,23 +1213,32 @@ def phase_tools():
         for k, n in counts.items():
             total[k] += n
         print(f"tool {name}: launches {counts} in {time.perf_counter() - t:.1f} s")
+        if name == "ablate_fused_unit":
+            unit = result["ms"]
         _free()
+    print("head unit by piece (ablate_fused_unit, ms): " + ", ".join(
+        f"{v} {unit[v]:.5f}" for v in ("dots_only", "conv_only", "full")) +
+        f"; conv_only - dots_only {unit['conv_only'] - unit['dots_only']:.5f}")
     return total
 
 
 def _check_no_spill(log, kernel):
     """Raise unless every function of `kernel` in a fresh build's ptxas log
-    reports 0 bytes of spill (a cached build has no log: nothing to read)."""
+    reports 0 bytes of spill (a cached build has no log: nothing to read);
+    prints each one's registers."""
     if not log:
         print(f"ptxas: cached build, no log; spills of {kernel} not read")
         return
     lines = log.splitlines()
     found = [i for i, line in enumerate(lines) if "Function properties for" in line and kernel in line]
     assert found, f"the ptxas log names no {kernel}"
+    regs = []
     for i in found:
         spill = next(line for line in lines[i + 1:] if "spill stores" in line)
         assert "0 bytes spill stores, 0 bytes spill loads" in spill, (lines[i], spill)
-    print(f"ptxas: {len(found)} instantiations of {kernel}, no spill")
+        used = next(line for line in lines[i + 1:] if "Used" in line)
+        regs.append(int(used.split("Used")[1].split()[0]))
+    print(f"ptxas: {len(found)} instantiations of {kernel}, no spill; registers {regs}")
 
 
 def main() -> int:
@@ -1227,9 +1263,10 @@ def main() -> int:
     lib, log = cuda_lib.build()
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "wgmma" in line or line.endswith(":"):
+        if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots")) or line.endswith(":"):
             print("ptxas:", line.strip())
     _check_no_spill(log, "conv_wgmma_kernel")
+    _check_no_spill(log, "xm_dots_kernel")
     if sys.argv[1:] == ["--profile"]:
         phase_profile(device)
         return 0
@@ -1251,18 +1288,23 @@ def main() -> int:
 
     source = "pixelwiseregression_tpu_torch/csrc/{}.cu"
     k6 = [("ablate_copy", "ablate_pieces", "copy", "tools/ablate_fused3.py:113",
-           ["tools/ablate_fused3.py:136", "tools/ablate_fused_unit.py:131"]),
+           ["tools/ablate_fused3.py:136", "tools/ablate_fused_unit.py:131"],
+           "16 bytes a thread per access through registers, four accesses in flight"),
           ("ablate_build_xm", "ablate_pieces", "build_xm", "tools/ablate_fused_unit.py:120",
-           ["tools/ablate_fused2.py:178", "tools/ablate_fused2.py:165"]),
+           ["tools/ablate_fused2.py:178", "tools/ablate_fused2.py:165"],
+           "one thread per 8 channels of an output block, the operand's index map"),
           ("ablate_xm_dots", "ablate_pieces", "xm_dots", "tools/ablate_fused_unit.py:152",
-           ["tools/ablate_fused2.py:165"]),
+           ["tools/ablate_fused2.py:165"],
+           "K3's bf16 conv main loop: wgmma m64n64k16 / m64n128k16 from shared-memory "
+           "descriptors (128-byte swizzle), 256-pixel tiles of four warpgroups, 64-deep K "
+           "steps over the flattened taps x K on a 3-stage cp.async ring"),
           ("norm_stats_apply", "fused_chain", "norm_stats_apply", "tools/ablate_fused_unit.py:126",
-           [])]
+           [], "K3's statistics (two passes, fixed order) and apply kernels")]
     k6_rows = [{"name": name, "route": "cuda", "source": source.format(src), "replaces": rep,
                 "also_replaces": also, "launches": tool_launches[counter],
                 "launches_by_path": {"tools": tool_launches[counter]}, **pieces[name],
-                "shape": [UNIT_BATCH, H * W, FEATURES], "dtype": "bf16"}
-               for name, src, counter, rep, also in k6]
+                "shape": [UNIT_BATCH, H * W, FEATURES], "dtype": "bf16", "design": design}
+               for name, src, counter, rep, also, design in k6]
     main_fwd = fwd[(TRAIN_BATCH, "f32")]
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _decoder_bounds(TRAIN_BATCH)
     head = units[("head_conv", "bf16")]

@@ -20,17 +20,23 @@
 //     (up to 3 blocks), or with `sum` the two blocks added in f32 and
 //     rounded once. Bound by bytes; exact data movement.
 //   * xm_dots: y[b, p] = sum_di xm[b, p + off_di] @ wcat[di], three K-deep
-//     products on a prebuilt operand, as K3's conv main loop runs them:
-//     64x64 output tiles per 128-thread block, K steps of 32 staged in
-//     shared memory, bf16 wmma with f32 accumulators, bf16 out. Bound by
-//     tensor-core operations at the head shape. Offsets (0, W, 2W) take
-//     the three vertical taps of xm; (0, 0, 0) the one row of an operand
-//     repeated three times.
+//     products on a prebuilt operand, on K3's bf16 conv main loop
+//     (fused_chain.cu, conv_wgmma_kernel): 256 pixels by 64 or 128 output
+//     channels per 512-thread block, four warpgroups of 64 rows running
+//     wgmma m64n64k16 or m64n128k16 (sm90_wgmma.cuh) from 128-byte-swizzled
+//     shared memory into f32 registers, 64-deep K steps over the flattened
+//     taps x K (a step may straddle two taps; past the last tap it is
+//     zeros), a three-stage ring that cp.async fills two steps ahead, bf16
+//     out through a shared-memory tile in 16-byte stores. Each pixel row
+//     resolves its own sample, so a tile may span two. Bound by
+//     tensor-core operations at the head shape (K = 384 a tap, Co = 128):
+//     18 steps of 32 KB of operand and 16 KB of weights a block, as K3's
+//     head conv. Offsets (0, W, 2W) take the three vertical taps of xm;
+//     (0, 0, 0) the one row of an operand repeated three times.
 // Each launcher enqueues on the given stream, allocates nothing and returns
 // the launch's cudaError_t.
 
-#include <mma.h>
-
+#include "sm90_wgmma.cuh"
 #include "vec8.cuh"
 
 namespace {
@@ -44,11 +50,29 @@ using pwr::zero8;
 constexpr int kCopyThreads = 256;
 constexpr int kCopyUnroll = 4;
 constexpr int kBuildThreads = 256;
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kDotThreads = 128;
-constexpr int kAS = kBK + 8;   // bf16 rows of the staged tiles: 16-byte aligned, ldm % 8 == 0
-constexpr int kBS = kBN + 8;
-constexpr int kCS = kBN + 4;   // f32 accumulator rows
+// xm_dots
+constexpr int kDotBM = 256;                          // output pixels per block: four warpgroups
+constexpr int kDotBK = 64;                           // K slots per step: one 128-byte row
+constexpr int kDotThreads = 512;
+constexpr int kDotStages = 3;
+constexpr int kChunks = kDotBK / kVec;               // 16-byte chunks per row and step
+constexpr int kRowsPerPass = kDotThreads / kChunks;  // rows the threads copy at once
+constexpr int kAPer = kDotBM / kRowsPerPass;         // A chunks per thread and step
+constexpr int kABytes = kDotBM * sm90::kSwRow;
+constexpr int kTaps = 3;
+static_assert(kDotBK * 2 == sm90::kSwRow, "a K step is one swizzled row");
+
+template <int BN>
+__host__ __device__ constexpr int dot_stage_bytes() { return kABytes + kDotBK * BN * 2; }
+template <int BN>
+__host__ __device__ constexpr int dot_cs_stride() { return BN + 8; }  // float2 stores free of conflicts
+
+template <int BN>
+constexpr size_t dot_smem_bytes() {
+  const size_t ring = kDotStages * static_cast<size_t>(dot_stage_bytes<BN>());
+  const size_t cs = static_cast<size_t>(kDotBM) * dot_cs_stride<BN>() * sizeof(float);
+  return (ring > cs ? ring : cs) + sm90::kSwAtom;  // + the alignment of the ring to an atom
+}
 
 __global__ void __launch_bounds__(kCopyThreads) copy_kernel(const uint4* __restrict__ src,
                                                             uint4* __restrict__ dst, size_t n) {
@@ -124,90 +148,141 @@ struct DotArgs {
   int off[3];
 };
 
-// grid (ceil(B*HW / kBM), ceil(Co / kBN)), kDotThreads threads
-__global__ void __launch_bounds__(kDotThreads) xm_dots_kernel(const DotArgs p) {
-  __shared__ __align__(128) unsigned char smem[kBM * kCS * sizeof(float)];
-  static_assert(kBM * kCS * sizeof(float) >= (kBM * kAS + kBK * kBS) * sizeof(__nv_bfloat16),
-                "the accumulator tile reuses the staged tiles");
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + kBM * kAS;
-  float* Cs = reinterpret_cast<float*>(smem);
-
+// grid (ceil(B*HW / kDotBM), ceil(Co / BN)), kDotThreads threads; warpgroup
+// wg computes tile rows wg*64 + [0, 64) by BN output channels.
+//
+// A K step is 64 slots of the flattened taps x K: one 128-byte row per
+// pixel of A [256 pixels, 64] (K-major) and per K row of B [64, BN]
+// (MN-major, in 64-column atoms), under the 128-byte swizzle, multiplied
+// by sm90::mma_k64 as in K3's conv_wgmma_kernel. The ring holds kDotStages stages,
+// kDotStages-1 steps ahead: step s's products are issued right after the
+// barrier and run while the threads issue step s+2's copies and wait for
+// step s+1's; wgmma.wait_group 0 before the next barrier frees the stage
+// the next copies refill.
+template <int BN>
+__global__ void __launch_bounds__(kDotThreads, 1) xm_dots_kernel(const DotArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int kAtom = sm90::kSwAtom;
+  constexpr int kAtomsN = BN / 64;  // 64-column atoms of B
+  constexpr int kBPer = kDotBK * BN / kVec / kDotThreads;
+  constexpr int kStage = dot_stage_bytes<BN>();
+  // the swizzle repeats every atom: the ring starts on an atom boundary
+  unsigned char* smem =
+      smem_raw + ((kAtom - (__cvta_generic_to_shared(smem_raw) & (kAtom - 1))) & (kAtom - 1));
+  const __nv_bfloat16* __restrict__ xm = p.xm;
+  const __nv_bfloat16* __restrict__ w = p.w;
+  const int t = threadIdx.x;
+  const int wg = t >> 7;
   const int M = p.B * p.HW;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  // the operand row this thread loads: row m0 + arow, columns ahalf*16 + [0, 16)
-  const int arow = threadIdx.x >> 1, ahalf = threadIdx.x & 1;
-  const int am = m0 + arow;
-  const bool avalid = am < M;
-  const int ab = avalid ? am / p.HW : 0;
-  const int ap = avalid ? am - ab * p.HW : 0;
-  // the weight row this thread loads: row brow, columns bq*16 + [0, 16)
-  const int brow = threadIdx.x >> 2, bq = threadIdx.x & 3;
+  const int m0 = blockIdx.x * kDotBM;
+  const int n0 = blockIdx.y * BN;
+  const int cpt = p.K / kVec;  // K chunks per tap
 
-  using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // A: chunk c of tile rows t/8 + 64i; each row resolves its own sample
+  // (a tile may span two): its operand row at offset 0, or -1 past M
+  const int c = t & (kChunks - 1);
+  const int arow = t >> 3;
+  int abase[kAPer];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1;  // warp tile rows wr*32, cols wc*32
+  for (int i = 0; i < kAPer; ++i) {
+    const int m = m0 + arow + kRowsPerPass * i;
+    const int b = m / p.HW;
+    abase[i] = m < M ? b * p.R + (m - b * p.HW) : -1;
+  }
+  // B: chunk c of output channels n0 + bcol, K rows brow(i)
+  const int batom = (t >> 3) % kAtomsN;
+  const int bcol = batom * 64 + c * kVec;
+  const bool bon = n0 + bcol < p.Co;
 
-  for (int di = 0; di < 3; ++di) {
-    const __nv_bfloat16* arow_ptr = p.xm + (static_cast<size_t>(ab) * p.R + ap + p.off[di]) * p.K;
-    const __nv_bfloat16* wd = p.w + static_cast<size_t>(di) * p.K * p.Co;
-    for (int k0 = 0; k0 < p.K; k0 += kBK) {
+  // copies of the step whose first chunk is at `at` into stage `stage`
+  auto issue = [&](sm90::KPos at, int stage) {
+    unsigned char* sa = smem + stage * kStage;
+    unsigned char* sb = sa + kABytes;
+    const sm90::KPos a = at.plus(c, cpt);
+    const bool kin = a.tap < kTaps;
+    const int off = a.tap == 0 ? p.off[0] : a.tap == 1 ? p.off[1] : p.off[2];
 #pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int kk = k0 + ahalf * 16 + v * kVec;
-        __nv_bfloat16* dst = As + arow * kAS + ahalf * 16 + v * kVec;
-        if (avalid && kk < p.K)
-          copy8(arow_ptr + kk, dst);
-        else
-          zero8(dst);
-      }
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int kr = k0 + brow;
-        const int nn = n0 + bq * 16 + v * kVec;
-        __nv_bfloat16* dst = Bs + brow * kBS + bq * 16 + v * kVec;
-        if (kr < p.K && nn < p.Co)
-          copy8(wd + static_cast<size_t>(kr) * p.Co + nn, dst);
-        else
-          zero8(dst);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wr * 32 + i * 16) * kAS + ks, kAS);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Bs + ks * kBS + wc * 32 + j * 16, kBS);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int i = 0; i < kAPer; ++i) {
+      const bool ok = kin && abase[i] >= 0;
+      sm90::cp_async16(sa + sm90::sw128(arow + kRowsPerPass * i, c),
+                       ok ? xm + static_cast<size_t>(abase[i] + off) * p.K + a.chunk * kVec : xm, ok);
     }
-  }
+#pragma unroll
+    for (int i = 0; i < kBPer; ++i) {
+      const int brow = (i * kRowsPerPass + (t >> 3)) / kAtomsN;  // K row of the step
+      const sm90::KPos b = at.plus(brow >> 3, cpt);
+      const bool ok = bon && b.tap < kTaps;
+      const int row = b.tap * p.K + b.chunk * kVec + (brow & 7);
+      sm90::cp_async16(sb + ((brow >> 3) * kAtomsN + batom) * kAtom + sm90::sw128(brow & 7, c),
+                       ok ? w + static_cast<size_t>(row) * p.Co + n0 + bcol : w, ok);
+    }
+  };
 
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  const int steps = (kTaps * cpt + kChunks - 1) / kChunks;
+  sm90::KPos load_at{0, 0};
+  int load_stage = 0, use_stage = 0;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * kCS + wc * 32 + j * 16, acc[i][j], kCS,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kBM * kBN / kVec; e += kDotThreads) {
-    const int row = e / (kBN / kVec);
-    const int col = (e - row * (kBN / kVec)) * kVec;
-    const int m = m0 + row, nn = n0 + col;
-    if (m >= M || nn >= p.Co) continue;
-    store8(p.y + static_cast<size_t>(m) * p.Co + nn, Cs + row * kCS + col);
+  for (int j = 0; j < kDotStages - 1; ++j) {
+    if (j < steps) issue(load_at, load_stage);
+    sm90::cp_async_commit();
+    load_at = load_at.plus(kChunks, cpt);
+    load_stage = load_stage + 1 == kDotStages ? 0 : load_stage + 1;
   }
+  for (int s = 0; s < steps; ++s) {
+    sm90::cp_async_wait<kDotStages - 2>();  // this thread's copies of step s
+    sm90::fence_proxy_async();
+    sm90::wait<0>();                        // this warpgroup's products of step s-1
+    sm90::fence_operands(acc);
+    __syncthreads();                        // step s in place; step s-1's stage free
+    const unsigned char* sa = smem + use_stage * kStage + wg * 64 * sm90::kSwRow;
+    const unsigned char* sb = smem + use_stage * kStage + kABytes;
+    sm90::mma_k64<BN>(acc, sa, sb);
+    use_stage = use_stage + 1 == kDotStages ? 0 : use_stage + 1;
+    if (s + kDotStages - 1 < steps) issue(load_at, load_stage);  // while the products run
+    sm90::cp_async_commit();
+    load_at = load_at.plus(kChunks, cpt);
+    load_stage = load_stage + 1 == kDotStages ? 0 : load_stage + 1;
+  }
+  sm90::wait<0>();
+  sm90::fence_operands(acc);
+  __syncthreads();  // every warpgroup is done with the ring
+
+  // accumulators -> shared memory (over the ring) -> y in 16-byte stores
+  float* Cs = reinterpret_cast<float*>(smem);
+  constexpr int CS = dot_cs_stride<BN>();
+  const int row0 = wg * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
+  const int col0 = 2 * (t & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(Cs + (row0 + 8 * h) * CS + 8 * j + col0) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncthreads();
+  constexpr int kPerRow = BN / kVec;
+  const int col = (t % kPerRow) * kVec;
+  if (n0 + col >= p.Co) return;
+  for (int row = t / kPerRow; row < kDotBM && m0 + row < M; row += kDotThreads / kPerRow) {
+    const float4 lo = *reinterpret_cast<const float4*>(Cs + row * CS + col);
+    const float4 hi = *reinterpret_cast<const float4*>(Cs + row * CS + col + 4);
+    const float v[kVec] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    store8(p.y + static_cast<size_t>(m0 + row) * p.Co + n0 + col, v);
+  }
+}
+
+template <int BN>
+cudaError_t launch_xm_dots(const DotArgs& p, cudaStream_t s) {
+  constexpr size_t smem = dot_smem_bytes<BN>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      xm_dots_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const size_t m = static_cast<size_t>(p.B) * p.HW;
+  const dim3 grid(static_cast<unsigned>((m + kDotBM - 1) / kDotBM), (p.Co + BN - 1) / BN);
+  xm_dots_kernel<BN><<<grid, kDotThreads, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -248,9 +323,8 @@ extern "C" int ablate_xm_dots(const void* xm, const void* w, void* y, int B, int
                               int Co, int off0, int off1, int off2, void* stream) {
   const DotArgs p{static_cast<const __nv_bfloat16*>(xm), static_cast<const __nv_bfloat16*>(w),
                   static_cast<__nv_bfloat16*>(y), B, R, HW, K, Co, {off0, off1, off2}};
-  const size_t m = static_cast<size_t>(B) * HW;
-  const dim3 grid(static_cast<unsigned>((m + kBM - 1) / kBM), (Co + kBN - 1) / kBN);
-  if (m == 0) return 0;
-  xm_dots_kernel<<<grid, kDotThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (static_cast<size_t>(B) * HW == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 128 output channels a block where Co allows it, as K3's conv
+  return static_cast<int>(Co >= 128 ? launch_xm_dots<128>(p, s) : launch_xm_dots<64>(p, s));
 }

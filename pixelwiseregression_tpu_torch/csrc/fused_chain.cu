@@ -67,6 +67,11 @@ using pwr::load8;
 using pwr::round_act;
 using pwr::store8;
 using pwr::zero8;
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::KPos;
+using sm90::sw128;
 
 // f32 conv
 constexpr int kBM = 64;   // output pixels per block
@@ -83,7 +88,8 @@ constexpr int kWgThreads = 512;
 constexpr int kWgStages = 3;                        // stages of the ring
 constexpr int kChunks = kWgBK / kVec;               // 16-byte chunks per row and step
 constexpr int kRowBytes = kWgBK * 2;                // one row of a step: 128 bytes
-constexpr int kAtom = 8 * kRowBytes;                // 8 rows: the 128-byte swizzle's repeat
+constexpr int kAtom = sm90::kSwAtom;                // 8 rows: the 128-byte swizzle's repeat
+static_assert(kRowBytes == sm90::kSwRow, "a K step is one swizzled row");
 constexpr int kRowsPerPass = kWgThreads / kChunks;  // rows the threads copy at once
 constexpr int kWgAPer = kWgBM / kRowsPerPass;       // A chunks per thread and step
 constexpr int kWgABytes = kWgBM * kRowBytes;
@@ -354,42 +360,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
          static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
 }
 
-// 16 bytes from device to shared memory without passing through registers
-// (cp.async, through L2 only), zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in rows of 128 bytes
-// under the 128-byte swizzle: chunk c of row r sits at slot c ^ (r % 8).
-__device__ __forceinline__ int sw128(int row, int chunk) {
-  return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
-}
-
-// K position of a chunk: the tap (index into the pass's taps) and the chunk
-// of 8 channels within it, cpt chunks per tap.
-struct KPos {
-  int tap, chunk;
-  __device__ __forceinline__ KPos plus(int by, int cpt) const {
-    KPos q{tap, chunk + by};
-    while (q.chunk >= cpt) {
-      q.chunk -= cpt;
-      ++q.tap;
-    }
-    return q;
-  }
-};
-
 // bf16: grid (ceil(M/kWgBM), ceil(Co/BN)), kWgThreads threads; warpgroup wg
 // computes tile rows wg*64 + [0, 64) by BN output channels.
 //
@@ -553,18 +523,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) conv_wgmma_kernel(const ConvArg
       __syncthreads();                 // step s in place; step s-1's stage free
       const unsigned char* sa = smem + use_stage * kStage + wg * 64 * kRowBytes;
       const unsigned char* sb = smem + use_stage * kStage + kWgABytes;
-      sm90::arrive();
-#pragma unroll
-      for (int ks = 0; ks < kWgBK / 16; ++ks) {
-        const uint64_t da = sm90::desc(sa + ks * 32, 16, kAtom, sm90::kSwizzle128);
-        const uint64_t db = sm90::desc(sb + ks * 2 * kAtomsN * kAtom, kAtom, kAtomsN * kAtom,
-                                       sm90::kSwizzle128);
-        if constexpr (BN == 64)
-          sm90::mma_m64n64k16(acc, da, db);
-        else
-          sm90::mma_m64n128k16(acc, da, db);
-      }
-      sm90::commit();
+      sm90::mma_k64<BN>(acc, sa, sb);
       use_stage = use_stage + 1 == kWgStages ? 0 : use_stage + 1;
       if (s + kWgStages - 1 < steps) issue(load_at, load_stage);  // while the products run
       cp_async_commit();

@@ -7,7 +7,7 @@
 // (LBO), a stride byte offset (SBO) and the layout. Without swizzle the
 // operand is core matrices of 8 rows x 16 bytes, each 128 contiguous
 // bytes; LBO is the stride between core matrices along K, SBO along M or
-// N. Under the 128-byte swizzle (what fused_chain.cu uses) rows are 128
+// N. Under the 128-byte swizzle (what the port's wgmma loops use) rows are 128
 // bytes, 8 rows make a 1024-byte atom, and 16-byte chunk c of row r sits at
 // slot c ^ (r % 8); for a K-major operand SBO is the stride between atoms
 // along M or N (LBO unused), and a k16 slice starts 32 bytes further into
@@ -26,6 +26,13 @@
 // other instruction touched the accumulators; commit() closes a group;
 // wait<N>() returns once at most N groups are still running, and only then
 // may the accumulators be read or the operands' shared memory rewritten.
+//
+// The operands reach shared memory through a ring of stages that 16-byte
+// cp.async copies fill (device memory to shared memory through L2, no
+// registers): eight threads copy one 128-byte row, 128 contiguous bytes in
+// device memory, which the swizzle spreads over all 32 banks. KPos walks a
+// K loop that runs over taps of cpt 8-element chunks each, so that a step
+// may straddle two taps.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +53,10 @@ __device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo_bytes, u
          static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32 | layout << 62;
 }
+
+// One row and one atom (8 rows) under the 128-byte swizzle.
+constexpr int kSwRow = 128;
+constexpr int kSwAtom = 8 * kSwRow;
 
 __device__ __forceinline__ void arrive() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
@@ -119,5 +130,66 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t desc_a, 
         "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
+
+// One 64-deep K step of a warpgroup, as one commit group: D[64 x BN] +=
+// A[64 x 64] * B[64 x BN], four k16 products. A is 64 K-major rows of 128
+// bytes under the 128-byte swizzle (SBO: the next 8 rows, one atom; the k16
+// slice ks 32*ks bytes into the rows); B is 64 K rows in BN/64 MN-major
+// atoms of 64 columns (LBO: the next 64 columns, one atom; SBO: the next
+// 8 K rows, BN/64 atoms; the slice ks 2*ks atom rows down). Both start on
+// an atom boundary.
+template <int BN>
+__device__ __forceinline__ void mma_k64(float (&d)[BN / 2], const unsigned char* sa,
+                                        const unsigned char* sb) {
+  static_assert(BN == 64 || BN == 128, "m64n64k16 or m64n128k16");
+  constexpr int kAtomsN = BN / 64;
+  arrive();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t da = desc(sa + ks * 32, 16, kSwAtom, kSwizzle128);
+    const uint64_t db = desc(sb + ks * 2 * kAtomsN * kSwAtom, kSwAtom, kAtomsN * kSwAtom, kSwizzle128);
+    if constexpr (BN == 64)
+      mma_m64n64k16(d, da, db);
+    else
+      mma_m64n128k16(d, da, db);
+  }
+  commit();
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in rows of 128 bytes
+// under the 128-byte swizzle: chunk c of row r sits at slot c ^ (r % 8).
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * kSwRow + ((chunk ^ (row & 7)) << 4);
+}
+
+// 16 bytes from device to shared memory without passing through registers
+// (cp.async, through L2 only), zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// K position of a chunk: the tap (index into the loop's taps) and the chunk
+// of 8 elements within it, cpt chunks per tap.
+struct KPos {
+  int tap, chunk;
+  __device__ __forceinline__ KPos plus(int by, int cpt) const {
+    KPos q{tap, chunk + by};
+    while (q.chunk >= cpt) {
+      q.chunk -= cpt;
+      ++q.tap;
+    }
+    return q;
+  }
+};
 
 }  // namespace sm90

@@ -582,20 +582,37 @@ def test_copy_kernel_is_exact(device):
     assert tap.COPY_LAUNCHES == before + 1 and torch.equal(y.view(torch.int16), x.view(torch.int16))
 
 
-@pytest.mark.parametrize("layout", ["taps", "repeat"])
-def test_xm_dots_kernel_matches_plain_version(device, layout):
+# (layout, B, H, W, K per tap, Co): M off the 256-pixel tile and tiles
+# that span two samples (H*W not a multiple of 256) throughout; K per tap of
+# 8, 72 and 384, so that a 64-deep K step ends mid-step or straddles two
+# taps; Co of 8, 72, 128 and 200 (64- and 128-column tiles, a partial last
+# one); both offset layouts; one head-sized grid
+XM_DOTS_CASES = {
+    "taps": ("taps", 3, 12, 10, 72, 72),
+    "repeat": ("repeat", 3, 12, 10, 72, 72),
+    "k8-co8-taps": ("taps", 3, 12, 10, 8, 8),
+    "k8-co128-repeat": ("repeat", 3, 7, 9, 8, 128),
+    "k72-co200-taps": ("taps", 5, 9, 13, 72, 200),
+    "k384-co72-taps": ("taps", 2, 12, 10, 384, 72),
+    "k384-co200-repeat": ("repeat", 2, 12, 10, 384, 200),
+    "head": ("taps", 4, 64, 64, 384, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(XM_DOTS_CASES))
+def test_xm_dots_kernel_matches_plain_version(device, case):
     """The products on a prebuilt operand, bf16, within 2 bf16 ulps of the
-    output's scale of the plain version's f32 products (past one 64x64 tile
-    in rows and columns, a partial 32-deep K step: K = 3*24)."""
+    output's scale of the plain version's f32 products."""
+    layout, b, h, w, k, co = XM_DOTS_CASES[case]
     rng = np.random.RandomState(63)
-    h, w, c, co = 12, 10, 24, 72
     rows, offsets = ((h + 2) * w, (0, w, 2 * w)) if layout == "taps" else (h * w, (0, 0, 0))
-    xm = torch.from_numpy(rng.randn(3, rows, 3 * c).astype(np.float32)).to(device, torch.bfloat16)
-    wcat = torch.from_numpy((0.1 * rng.randn(3, 3 * c, co)).astype(np.float32)).to(device, torch.bfloat16)
+    xm = torch.from_numpy(rng.randn(b, rows, k).astype(np.float32)).to(device, torch.bfloat16)
+    wcat = torch.from_numpy((0.1 * rng.randn(3, k, co)).astype(np.float32)).to(device, torch.bfloat16)
     before = tap.DOTS_LAUNCHES
     got = tap.xm_dots(xm, wcat, h * w, offsets)
     torch.cuda.synchronize()
     assert tap.DOTS_LAUNCHES == before + 1
+    assert got.shape == (b, h * w, co)
     assert _bf16_ulps(got, tap.xm_dots_plain(xm, wcat, h * w, offsets)) <= 2.0
 
 
