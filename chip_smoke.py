@@ -34,7 +34,11 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    that the unit engine launches at full width (and one f32 case), with
    cuDNN's conv alone at the same shape as a partial yardstick, each
    unit's share of its bound and its ratio to cuDNN's conv;
-9. K4 against its plain version at [256, 64, 64, 128] bf16, level 4;
+9. K4 against its plain version at [256, 64, 64, 128] bf16, level 4, and
+   on its tail's own input ([256, 16, 16, 128], level 2: the levels it
+   runs as one block per sample), with the kernels each call reports it
+   launched: the tail once in bf16 and never in f32, asserted, and the
+   launches per call printed;
 10. both fused inference engines end to end at full width (NYU: 14
    joints, 2 stages, 128 features, level 4, instance norm, bf16, batch 64)
    on weights made from a seed: the unit engine through 32 K3 and 2 K1
@@ -47,19 +51,21 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    autograd backward of relu(instance_norm);
 13. each K6 piece (copy, build_xm and its probes, xm_dots, K3's statistics
    and apply alone) at the head shape, batch 256, against its plain
-   version, timed beside Tensor.copy_ (in turns, with both spreads) and
-   three torch.matmul calls;
+   version, timed beside Tensor.copy_ (in turns, with both spreads),
+   build_xm's repeat mode in turns with x.repeat(1, 1, 3), and three
+   torch.matmul calls;
 14. the tools slice: the five A/B and ablation tools of the port
    (pixelwiseregression_tpu_torch/tools) at their default shapes with few
    rounds, each through its kernels, with the launches of K5, K3 and each
    K6 piece asserted, and the head unit's dots_only, conv_only and full
    side by side.
 
-After the build it fails if ptxas reports a spill in K3's wgmma conv or
-in K6's xm_dots (the same loop).
+After the build it fails if ptxas reports a spill in K3's wgmma conv, in
+K6's xm_dots (the same loop) or in K4's tail kernel.
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
-quotes.
+quotes; then K4's tail kernel's device time a ResBlock in one wave of
+blocks (_tail_per_block).
 
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
@@ -787,12 +793,12 @@ def _hourglass_pixels(side, level):
     return side * side + inner + (side // 2) ** 2
 
 
-def _perturbed_hourglass(seed):
+def _perturbed_hourglass(seed, level=LEVEL):
     """A full-width Hourglass from a seed, norm scales and biases off 1 and 0."""
     from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass
 
     torch.manual_seed(seed)
-    hg = Hourglass(FEATURES, LEVEL, "instance")
+    hg = Hourglass(FEATURES, level, "instance")
     with torch.no_grad():
         for m in hg.modules():
             if hasattr(m, "method"):
@@ -801,48 +807,140 @@ def _perturbed_hourglass(seed):
     return hg
 
 
-def phase_hourglass(device):
-    """K4 vs its plain version at [256, 64, 64, 128] bf16, level 4, and the
-    same input in f32."""
+def _hourglass_case(device, side, level):
+    """K4 against its plain version at [256, side, side, 128] bf16 on a
+    level-`level` stack (the same input in f32 too), timed; returns its
+    numbers, its stacked weights and its input. The bound counts each
+    ResBlock's products at its own pixels, the input and output once and
+    the stacked weights once."""
     from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
 
     stacked = {k: v.to(device) for k, v in
-               ch.stack_hourglass_params(_perturbed_hourglass(SEED + 60), LEVEL).items()}
+               ch.stack_hourglass_params(_perturbed_hourglass(SEED + 60, level), level).items()}
     gen = torch.Generator(device=device).manual_seed(SEED + 61)
-    x = torch.randn(UNIT_BATCH, H, W, FEATURES, generator=gen, device=device).to(torch.bfloat16)
+    x = torch.randn(UNIT_BATCH, side, side, FEATURES, generator=gen, device=device).to(torch.bfloat16)
 
     def kernel():
-        return ch.hourglass_fused(x, stacked, LEVEL)
+        return ch.hourglass_fused(x, stacked, level)
 
     def plain():
-        return ch.hourglass_fused_plain(x, stacked, LEVEL)
+        return ch.hourglass_fused_plain(x, stacked, level)
 
     def rel_l2(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
     got, want = kernel(), plain()
-    got32 = ch.hourglass_fused(x.float(), stacked, LEVEL)
-    want32 = ch.hourglass_fused_plain(x.float(), stacked, LEVEL)
+    got32 = ch.hourglass_fused(x.float(), stacked, level)
+    want32 = ch.hourglass_fused_plain(x.float(), stacked, level)
     torch.cuda.synchronize()
-    assert got.shape == x.shape and torch.isfinite(got.float()).all()
+    tag = f"hourglass_fused [{UNIT_BATCH},{side},{side},{FEATURES}] level {level}"
+    assert got.shape == x.shape and torch.isfinite(got.float()).all(), tag
     err32 = float((got32 - want32).abs().max())
-    assert err32 <= 1e-4 * float(want32.abs().max()), f"hourglass f32: {err32:.3e}"
+    assert err32 <= 1e-4 * float(want32.abs().max()), f"{tag} f32: {err32:.3e}"
     err, ulps, share = _rounding_gap(got, want)
     gap, own = rel_l2(got, want), rel_l2(want, want32)
-    assert gap <= own, f"hourglass bf16: relative L2 gap {gap:.3e} above bf16's own {own:.3e}"
+    assert gap <= own, f"{tag} bf16: relative L2 gap {gap:.3e} above bf16's own {own:.3e}"
+    del got32, want32
     ms, plain_ms = _median_ms(kernel, runs=5, iters=10), _median_ms(plain, runs=3, iters=2)
     c, ch2 = FEATURES, FEATURES // 2
     per_pixel = 2 * c * ch2 + 2 * 9 * ch2 * ch2 + 2 * ch2 * c
-    weights = ch.num_resblocks(LEVEL) * (c * ch2 + 9 * ch2 * ch2 + ch2 * c)
-    bound, by = _bound(UNIT_BATCH * _hourglass_pixels(H, LEVEL) * per_pixel,
+    weights = ch.num_resblocks(level) * (c * ch2 + 9 * ch2 * ch2 + ch2 * c)
+    bound, by = _bound(UNIT_BATCH * _hourglass_pixels(side, level) * per_pixel,
                        2 * (2 * x.numel() + weights), "bf16")
-    print(f"kernel hourglass_fused [{UNIT_BATCH},{H},{W},{FEATURES}] level {LEVEL} bf16: "
-          f"max_abs_err={err:.3e} ({ulps:.2f} ulps of the scale, {share:.2e} of elements > 1 ulp "
-          f"apart, relative L2 gap {gap:.3e} against bf16's own {own:.3e}; f32 max_abs_err "
-          f"{err32:.3e}) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms=none "
-          f"bound_ms={bound:.5f} ({by})")
+    by_kernel = _device_time_by_kernel(kernel)
+    print(f"{tag} bf16, device time per call by kernel (torch.profiler, 5 calls): " + "; ".join(
+        f"{us:.1f} us in {n:g} launches: {name.replace('(anonymous namespace)::', '').split('(')[0][-60:]}"
+        for name, n, us in by_kernel))
+    print(f"kernel {tag} bf16: max_abs_err={err:.3e} ({ulps:.2f} ulps of the scale, {share:.2e} "
+          f"of elements > 1 ulp apart, relative L2 gap {gap:.3e} against bf16's own {own:.3e}; "
+          f"f32 max_abs_err {err32:.3e}) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms=none bound_ms={bound:.5f} ({by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by}
+            "bound_by": by, "by_kernel": by_kernel}, stacked, x
+
+
+def _device_time_by_kernel(fn, calls=5):
+    """Device time (us) and launches per call of fn, by kernel name, from
+    torch.profiler over `calls` calls after a warm-up; largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0) if us is None else us
+        if us > 0 and not e.key.startswith(("aten::", "Activity", "cuda")):
+            rows.append((e.key, e.count / calls, us / calls))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+# the levels at 16x16 and below of the full-width level-4 hourglass, on
+# their own: a level-2 hourglass at a quarter of the side (7 of its 11
+# ResBlocks, 3 of its 5 pools and upsample-adds)
+TAIL_SIDE, TAIL_LEVEL = H // 4, LEVEL - 2
+
+
+def _k4_call_launches(ch, x, stacked, level):
+    """What one K4 call reports it launched: (kernels, tail kernels)."""
+    ch.KERNEL_LAUNCHES = ch.TAIL_LAUNCHES = 0
+    ch.hourglass_fused(x, stacked, level)
+    torch.cuda.synchronize()
+    return ch.KERNEL_LAUNCHES, ch.TAIL_LAUNCHES
+
+
+def phase_hourglass(device):
+    """K4 vs its plain version at [256, 64, 64, 128] bf16, level 4, and the
+    same input in f32; then the same at the levels it runs at 16x16 and
+    below alone ([256, 16, 16, 128], level 2). From what each call reports
+    it launched: the full-width bf16 call runs the one-block-per-sample tail
+    once (torch.profiler's count of tail_kernel agrees), the f32 call never,
+    and the level-2 call is the tail alone."""
+    from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
+
+    full, stacked, x = _hourglass_case(device, H, LEVEL)
+    tail_counts = [n for name, n, _ in full.pop("by_kernel") if "tail_kernel" in name]
+    assert tail_counts == [1.0], f"torch.profiler: tail_kernel launches per call {tail_counts}"
+    kernels, tails = _k4_call_launches(ch, x, stacked, LEVEL)
+    kernels32, tails32 = _k4_call_launches(ch, x.float(), stacked, LEVEL)
+    assert (tails, tails32) == (1, 0), (tails, tails32)
+    smem = ch.TAIL_SMEM_BYTES
+    del stacked, x
+    _free()
+    case, stacked, x = _hourglass_case(device, TAIL_SIDE, TAIL_LEVEL)
+    case.pop("by_kernel")
+    assert _k4_call_launches(ch, x, stacked, TAIL_LEVEL) == (1, 1), "the level-2 call is the tail"
+    full.update(tail_ms=case["ms"], tail_bound_ms=case["bound_ms"],
+                tail_max_abs_err=case["max_abs_err"], launches_per_call=kernels,
+                launches_per_call_f32=kernels32, tail_smem_bytes=smem)
+    print(f"kernel hourglass_fused level {LEVEL}: bf16 launched {kernels} kernels a call, its "
+          f"levels at {TAIL_SIDE}x{TAIL_SIDE} and below as one (the tail: {case['ms']:.5f} ms of "
+          f"{full['ms']:.5f}, {smem} bytes of shared memory a block); f32 launched {kernels32}")
+    del stacked, x
+    _free()
+    return full
+
+
+def _tail_per_block(device):
+    """``--profile``: the tail kernel's device time for one wave of blocks
+    (one sample per SM), at 16x16 (level 2, 7 ResBlocks) and at 2x2 (level
+    0, 3): a block's time, and its time per ResBlock at either size."""
+    from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    gen = torch.Generator(device=device).manual_seed(SEED + 62)
+    for side, level in ((TAIL_SIDE, TAIL_LEVEL), (2, 0)):
+        stacked = {k: v.to(device) for k, v in
+                   ch.stack_hourglass_params(_perturbed_hourglass(SEED + 60, level), level).items()}
+        x = torch.randn(sms, side, side, FEATURES, generator=gen, device=device).to(torch.bfloat16)
+        us = sum(t for name, _, t in _device_time_by_kernel(lambda: ch.hourglass_fused(x, stacked, level))
+                 if "tail_kernel" in name)
+        print(f"kernel hourglass_tail, one wave ({sms} samples), level {level} at {side}x{side}: "
+              f"{us:.1f} us of device time, {us / ch.num_resblocks(level):.1f} us a ResBlock")
 
 
 def _engine_model(device, dtype, features=FEATURES, level=LEVEL):
@@ -875,7 +973,8 @@ def _forward_fps(fn, inputs, iters=5):
 
 def phase_engines(cs, device):
     """Both engines at full width, bf16, batch 64 (the main paths of this
-    slice); returns each engine's (K3, K4, K1) launches per forward."""
+    slice); returns each engine's (K3, K4, K1, K4's tail) launches per
+    forward."""
     from pixelwiseregression_tpu_torch.models.infer_engine import (make_fused_apply,
                                                                    make_unit_fused_apply)
     from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
@@ -887,12 +986,12 @@ def phase_engines(cs, device):
     engines = {name: make(model) for name, make in builders.items()}
     outs, launches = {}, {}
     for name, fn in engines.items():
-        cs.LAUNCHES = cf.LAUNCHES = ch.LAUNCHES = 0
+        cs.LAUNCHES = cf.LAUNCHES = ch.LAUNCHES = ch.TAIL_LAUNCHES = 0
         outs[name] = fn(*inputs)
         torch.cuda.synchronize()
-        launches[name] = (cf.LAUNCHES, ch.LAUNCHES, cs.LAUNCHES)
-    assert launches["unit"] == (32, 0, STAGES), launches
-    assert launches["fused"] == (0, STAGES, STAGES), launches
+        launches[name] = (cf.LAUNCHES, ch.LAUNCHES, cs.LAUNCHES, ch.TAIL_LAUNCHES)
+    assert launches["unit"] == (32, 0, STAGES, 0), launches
+    assert launches["fused"] == (0, STAGES, STAGES, STAGES), launches
 
     plain = {name: make(model, plain=True)(*inputs) for name, make in builders.items()}
     model32 = _engine_model(device, torch.float32)
@@ -929,7 +1028,7 @@ def phase_engines(cs, device):
             assert gap <= max(ENGINE_GAP_BOUND, 2 * own), (name, s, gap, own)
             if s == 0:
                 assert model_gap <= max(MODEL_GAP_BOUND, 2 * own), (name, model_gap, own)
-    print(f"engine launches per forward (K3, K4, K1): unit {launches['unit']}, "
+    print(f"engine launches per forward (K3, K4, K1, K4's tail): unit {launches['unit']}, "
           f"fused {launches['fused']}")
 
     forwards = {**engines, "model": model}
@@ -1053,6 +1152,33 @@ def phase_normrelu(device):
     return out
 
 
+def _turns_verdict(ms, spread, lib_ms, lib_spread):
+    """Slower only if the median exceeds the library's by more than the
+    larger of the two spreads."""
+    return "slower" if ms - lib_ms > max(spread, lib_spread) * lib_ms else "no slower"
+
+
+def _repeat_turns(x):
+    """build_xm's repeat mode, concat(x, x, x) along channels, timed in
+    turns with x.repeat(1, 1, 3), the one PyTorch call that computes it."""
+    from pixelwiseregression_tpu_torch.ops import ablate_pieces as ap
+
+    b, hw, c = x.shape
+    got = ap.build_xm(x, H, W, "repeat")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), x.repeat(1, 1, 3).view(torch.int16)), "repeat mode"
+    del got
+    (ms, spread), (lib_ms, lib_spread) = _interleaved_ms(
+        [lambda: ap.build_xm(x, H, W, "repeat"), lambda: x.repeat(1, 1, 3)])
+    verdict = _turns_verdict(ms, spread, lib_ms, lib_spread)
+    bound, by = _bound(0, 2 * 4 * x.numel(), "bf16")
+    print(f"kernel ablate_build_xm repeat vs x.repeat(1, 1, 3) [{b},{hw},{c}] bf16, 7 turns of 20 "
+          f"calls each: build_xm {ms:.5f} ms (spread {spread:.4f}), repeat {lib_ms:.5f} ms "
+          f"(spread {lib_spread:.4f}): {ms / lib_ms:.4f}x, {verdict}; bound_ms={bound:.5f} ({by})")
+    return {"ms": ms, "spread": spread, "library_ms": lib_ms, "library_spread": lib_spread,
+            "verdict": verdict, "bound_ms": bound, "bound_by": by}
+
+
 def phase_ablate(device):
     """Each K6 piece at the head shape, batch 256, bf16, against its plain
     version: the copy and every build_xm mode bit-exact, xm_dots within 2
@@ -1092,7 +1218,7 @@ def phase_ablate(device):
     # the copy against Tensor.copy_ in turns: slower only if its median
     # exceeds copy_'s by more than the larger of the two spreads
     (ms, spread), (lib_ms, lib_spread) = _interleaved_ms([lambda: ap.copy(x), lambda: dst.copy_(x)])
-    verdict = "slower" if ms - lib_ms > max(spread, lib_spread) * lib_ms else "no slower"
+    verdict = _turns_verdict(ms, spread, lib_ms, lib_spread)
     print(f"kernel ablate_copy vs Tensor.copy_ [{b},{hw},{c}] bf16, 7 turns of 20 calls each: "
           f"copy {ms:.5f} ms (spread {spread:.4f}), copy_ {lib_ms:.5f} ms (spread "
           f"{lib_spread:.4f}): {ms / lib_ms:.4f}x, {verdict}")
@@ -1110,6 +1236,7 @@ def phase_ablate(device):
     record("ablate_build_xm", 0.0, lambda: ap.build_xm(x, H, W), lambda: ap.build_xm_plain(x, H, W),
            None, _bound(0, act + xm_bytes, "bf16"),
            f" (bit-exact in every mode: {', '.join(ap.XM_MODES)}; timed: xm)")
+    out["ablate_build_xm"]["repeat"] = _repeat_turns(x)
     _free()
 
     xm = (0.5 * torch.randn(b, (H + 2) * W, 3 * c, generator=gen, device=device)).to(torch.bfloat16)
@@ -1263,12 +1390,14 @@ def main() -> int:
     lib, log = cuda_lib.build()
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
-        if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots")) or line.endswith(":"):
+        if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots", "tail")) or line.endswith(":"):
             print("ptxas:", line.strip())
     _check_no_spill(log, "conv_wgmma_kernel")
     _check_no_spill(log, "xm_dots_kernel")
+    _check_no_spill(log, "tail_kernel")
     if sys.argv[1:] == ["--profile"]:
         phase_profile(device)
+        _tail_per_block(device)
         return 0
 
     fwd = phase_kernel(cs, soft_argmax_decode_flat, device)
@@ -1292,7 +1421,9 @@ def main() -> int:
            "16 bytes a thread per access through registers, four accesses in flight"),
           ("ablate_build_xm", "ablate_pieces", "build_xm", "tools/ablate_fused_unit.py:120",
            ["tools/ablate_fused2.py:178", "tools/ablate_fused2.py:165"],
-           "one thread per 8 channels of an output block, the operand's index map"),
+           "a row-wise copy: a block's threads cover whole output rows in 16-byte chunks, "
+           "each thread's column and source resolved once, 4 rows in flight, 32-bit index "
+           "math within a sample; repeat mode timed in turns with x.repeat(1, 1, 3)"),
           ("ablate_xm_dots", "ablate_pieces", "xm_dots", "tools/ablate_fused_unit.py:152",
            ["tools/ablate_fused2.py:165"],
            "K3's bf16 conv main loop: wgmma m64n64k16 / m64n128k16 from shared-memory "
@@ -1345,7 +1476,17 @@ def main() -> int:
          "max_abs_err": hourglass["max_abs_err"], "ms": hourglass["ms"],
          "plain_ms": hourglass["plain_ms"], "library_ms": None,
          "bound_ms": hourglass["bound_ms"], "bound_by": hourglass["bound_by"],
-         "shape": [UNIT_BATCH, H, W, FEATURES], "dtype": "bf16"},
+         "tail_source": source.format("hourglass_tail"),
+         "tail_launches": engine_launches["fused"][3],
+         "tail_ms": hourglass["tail_ms"], "tail_bound_ms": hourglass["tail_bound_ms"],
+         "tail_max_abs_err": hourglass["tail_max_abs_err"],
+         "tail_smem_bytes": hourglass["tail_smem_bytes"],
+         "launches_per_call": hourglass["launches_per_call"],
+         "launches_per_call_f32": hourglass["launches_per_call_f32"],
+         "shape": [UNIT_BATCH, H, W, FEATURES], "dtype": "bf16",
+         "design": "levels above 16x16 on K3's kernels plus pool and upsample-add kernels; "
+                   "16x16 and below (bf16, C <= 128) one block per sample in shared memory, "
+                   "mma.sync m16n8k16 from ldmatrix, weights by cp.async through two stages"},
         {"name": "normrelu_bwd", "route": "cuda", "source": source.format("normrelu_bwd"),
          "replaces": "pixelwiseregression_tpu/ops/fused_normrelu.py:124",
          "launches": tool_launches["K5"], "launches_by_path": {"tools": tool_launches["K5"]},

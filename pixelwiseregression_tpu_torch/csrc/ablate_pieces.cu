@@ -41,15 +41,14 @@
 
 namespace {
 
-using pwr::copy8;
 using pwr::kVec;
-using pwr::load8;
 using pwr::store8;
-using pwr::zero8;
 
 constexpr int kCopyThreads = 256;
 constexpr int kCopyUnroll = 4;
 constexpr int kBuildThreads = 256;
+constexpr int kBuildPasses = 4;  // rows a build_xm thread keeps in flight
+constexpr int kBuildRounds = 2;  // passes of kBuildPasses rows a block makes
 // xm_dots
 constexpr int kDotBM = 256;                          // output pixels per block: four warpgroups
 constexpr int kDotBK = 64;                           // K slots per step: one 128-byte row
@@ -92,52 +91,109 @@ __global__ void __launch_bounds__(kCopyThreads) copy_kernel(const uint4* __restr
 
 struct XmArgs {
   const void* x;  // [B, H*W, C]
-  void* out;      // [B, R, nblk*C]
-  int B, H, W, C, R, nblk, sum;
+  void* out;      // [B, R, nblk*C], or [B, R, C] with sum
+  int H, W, C, R, nblk, sum;
   int ro[3], cb[3];
 };
 
-// 8 channels of xm[b, row, cb*C + c], or null where xm holds zeros
+// the sum of two 16-byte chunks in f32, rounded once to T
 template <typename T>
-__device__ __forceinline__ const T* xm_at(const XmArgs& a, int b, int row, int cb, int c) {
-  const int HW = a.H * a.W;
-  const int q = row - a.W;
-  if (q < 0 || q >= HW) return nullptr;
-  const int col = q % a.W;
-  const int dj = cb - 1;
-  if ((dj < 0 && col == 0) || (dj > 0 && col == a.W - 1)) return nullptr;
-  return static_cast<const T*>(a.x) + (static_cast<size_t>(b) * HW + q + dj) * a.C + c;
+__device__ __forceinline__ uint4 add_chunks(uint4 a, uint4 b);
+template <>
+__device__ __forceinline__ uint4 add_chunks<float>(uint4 a, uint4 b) {
+  return make_uint4(__float_as_uint(__fadd_rn(__uint_as_float(a.x), __uint_as_float(b.x))),
+                    __float_as_uint(__fadd_rn(__uint_as_float(a.y), __uint_as_float(b.y))),
+                    __float_as_uint(__fadd_rn(__uint_as_float(a.z), __uint_as_float(b.z))),
+                    __float_as_uint(__fadd_rn(__uint_as_float(a.w), __uint_as_float(b.w))));
+}
+template <>
+__device__ __forceinline__ uint4 add_chunks<__nv_bfloat16>(uint4 a, uint4 b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+    const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    const __nv_bfloat162 h = __floats2bfloat162_rn(__fadd_rn(fa.x, fb.x), __fadd_rn(fa.y, fb.y));
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// one thread per 8 channels of one output block of one row
+// One source block of a thread's output column: xm's column block cb at
+// row offset ro, resolved once per column; its rows are then found with
+// 32-bit adds and compares.
+struct XmSource {
+  int ro_w;    // ro - W: the source row of output row r is q = r + ro_w
+  int col_of;  // (ro - W) mod W: q's column is r's column + col_of, mod W
+  int dj;      // horizontal tap, -1, 0 or 1
+  int cc;      // first element of the chunk within the C channels
+};
+
+__device__ __forceinline__ XmSource xm_source(const XmArgs& a, int k, int cc) {
+  // selects, not a.ro[k]: an indexed kernel parameter goes through local memory
+  const int ro_w = (k == 0 ? a.ro[0] : k == 1 ? a.ro[1] : a.ro[2]) - a.W;
+  const int cb = k == 0 ? a.cb[0] : k == 1 ? a.cb[1] : a.cb[2];
+  return {ro_w, ((ro_w % a.W) + a.W) % a.W, cb - 1, cc};
+}
+
+// the chunk of output row r (column col) that source s reads, or zeros
 template <typename T>
-__global__ void __launch_bounds__(kBuildThreads) build_xm_kernel(const XmArgs a, size_t items) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * kBuildThreads + threadIdx.x;
-  if (i >= items) return;
-  const int groups = a.C / kVec;
-  const int c = static_cast<int>(i % groups) * kVec;
-  size_t t = i / groups;
-  const int k = static_cast<int>(t % a.nblk);
-  t /= a.nblk;
-  const int r = static_cast<int>(t % a.R);
-  const int b = static_cast<int>(t / a.R);
-  T* dst = static_cast<T*>(a.out) + ((static_cast<size_t>(b) * a.R + r) * a.nblk + k) * a.C + c;
-  if (a.sum) {  // both operands, a zero of xm included, as the probe adds them
-    float v[2][kVec] = {};
-    for (int s = 0; s < 2; ++s) {
-      const T* src = xm_at<T>(a, b, r + a.ro[s], a.cb[s], c);
-      if (src != nullptr) load8(src, v[s]);
-    }
+__device__ __forceinline__ uint4 xm_fetch(const T* __restrict__ x, const XmArgs& a, int HW,
+                                          const XmSource& s, int r, int col) {
+  const int q = r + s.ro_w;
+  int cq = col + s.col_of;
+  if (cq >= a.W) cq -= a.W;
+  const bool on = q >= 0 && q < HW && !(s.dj < 0 && cq == 0) && !(s.dj > 0 && cq == a.W - 1);
+  return on ? *reinterpret_cast<const uint4*>(x + (q + s.dj) * a.C + s.cc) : make_uint4(0, 0, 0, 0);
+}
+
+// grid (row tiles, B). The output rows of a sample are contiguous, cpr
+// 16-byte chunks each; the block's threads cover rpp whole rows a pass
+// (thread t: chunk t % cpr of row t / cpr, fixed, so its column block and
+// source are resolved once), and each thread keeps kBuildPasses rows in
+// flight, rpp apart, their loads issued before their stores. All index
+// arithmetic is 32-bit within a sample (the host checks the sizes); rows
+// of zeros (the vertical padding, a tap across an image row) load nothing.
+template <typename T>
+__global__ void __launch_bounds__(kBuildThreads) build_xm_kernel(const XmArgs a, int rpp, int tile) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements of a chunk
+  const int cpb = a.C / kPer;
+  const int cpr = (a.sum ? 1 : a.nblk) * cpb;
+  const int HW = a.H * a.W;
+  const T* __restrict__ x = static_cast<const T*>(a.x) + static_cast<size_t>(blockIdx.y) * HW * a.C;
+  uint4* __restrict__ out = static_cast<uint4*>(a.out) + static_cast<size_t>(blockIdx.y) * a.R * cpr;
+  const int r_first = blockIdx.x * tile;
+  const int r_end = min(r_first + tile, a.R);
+  const int rsub = cpr <= kBuildThreads ? threadIdx.x / cpr : 0;
+  if (rsub >= rpp) return;
+  const int step = rpp % a.W;  // a pass's move of the column
+  for (int j = cpr <= kBuildThreads ? threadIdx.x % cpr : threadIdx.x; j < cpr; j += kBuildThreads) {
+    const int k = j / cpb;
+    const int cc = (j - k * cpb) * kPer;
+    const XmSource s0 = xm_source(a, a.sum ? 0 : k, cc);
+    const XmSource s1 = xm_source(a, 1, cc);  // sum's second operand
+    int r = r_first + rsub;
+    int col = r % a.W;
+    for (; r < r_end; r += kBuildPasses * rpp) {
+      uint4 v[kBuildPasses];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) v[0][j] = __fadd_rn(v[0][j], v[1][j]);
-    store8(dst, v[0]);
-    return;
+      for (int u = 0; u < kBuildPasses; ++u) {
+        const int ru = r + u * rpp;
+        if (ru < r_end) {
+          v[u] = xm_fetch(x, a, HW, s0, ru, col);
+          if (a.sum) v[u] = add_chunks<T>(v[u], xm_fetch(x, a, HW, s1, ru, col));
+        }
+        col += step;
+        if (col >= a.W) col -= a.W;
+      }
+#pragma unroll
+      for (int u = 0; u < kBuildPasses; ++u) {
+        const int ru = r + u * rpp;
+        if (ru < r_end) out[ru * cpr + j] = v[u];
+      }
+    }
   }
-  const T* src = xm_at<T>(a, b, r + a.ro[k], a.cb[k], c);
-  if (src != nullptr)
-    copy8(src, dst);
-  else
-    zero8(dst);
 }
 
 struct DotArgs {
@@ -300,19 +356,25 @@ extern "C" int ablate_copy(const void* src, void* dst, long long nbytes, void* s
 
 // x [B, H*W, C] -> out [B, R, nblk*C], both bf16 (if bf16) or f32, C a
 // multiple of 8; block k of row r is xm[r + ro_k, block cb_k]; with sum,
-// out [B, R, C] is xm[r + ro_0, cb_0] + xm[r + ro_1, cb_1].
+// out [B, R, C] is xm[r + ro_0, cb_0] + xm[r + ro_1, cb_1]. A sample's
+// input and output each hold fewer than 2^31 elements, B at most 65535.
 extern "C" int ablate_build_xm(int bf16, const void* x, void* out, int B, int H, int W, int C,
                                int R, int nblk, int sum, int ro0, int ro1, int ro2, int cb0,
                                int cb1, int cb2, void* stream) {
-  const XmArgs a{x, out, B, H, W, C, R, nblk, sum, {ro0, ro1, ro2}, {cb0, cb1, cb2}};
-  const size_t items = static_cast<size_t>(B) * R * nblk * (C / kVec);
-  const unsigned blocks = static_cast<unsigned>((items + kBuildThreads - 1) / kBuildThreads);
-  if (blocks == 0) return 0;
+  const XmArgs a{x, out, H, W, C, R, nblk, sum, {ro0, ro1, ro2}, {cb0, cb1, cb2}};
+  const long long wide = static_cast<long long>(R) * (sum ? 1 : nblk) * C;
+  if (static_cast<long long>(H) * W * C >= (1LL << 31) || wide >= (1LL << 31) || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(B) * R == 0 || C == 0) return 0;
+  const int cpr = static_cast<int>(wide / R) / (bf16 ? 8 : 4);
+  const int rpp = cpr <= kBuildThreads ? kBuildThreads / cpr : 1;
+  const int tile = rpp * kBuildPasses * kBuildRounds;
+  const dim3 grid((R + tile - 1) / tile, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    build_xm_kernel<__nv_bfloat16><<<blocks, kBuildThreads, 0, s>>>(a, items);
+    build_xm_kernel<__nv_bfloat16><<<grid, kBuildThreads, 0, s>>>(a, rpp, tile);
   else
-    build_xm_kernel<float><<<blocks, kBuildThreads, 0, s>>>(a, items);
+    build_xm_kernel<float><<<grid, kBuildThreads, 0, s>>>(a, rpp, tile);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,10 +23,17 @@
 // (fused_common.cuh: statistics, then each conv with the norm applied as its
 // input loads) and two kernels of its own here (the max-pool, and the
 // upsample with the skip add), every level's activations in a workspace in
-// device memory that the caller allocates. Keeping the levels at 16x16 and
-// below on chip, one block per sample, is the next step.
+// device memory that the caller allocates, down to the first level whose
+// sub-hourglass fits one block's shared memory (hourglass_tail.cuh): bf16,
+// C a multiple of 16 and at most 128, h*w at most 256. That sub-hourglass,
+// hg(x, h, w, lv) with its 2*lv + 3 ResBlocks, runs as one kernel of one
+// block per sample (hourglass_tail.cu); at full width ([B, 64, 64, 128],
+// level 4) it is level 2 at 16x16, and a call makes 29 launches where it
+// made 76. f32 runs every level here (a 16x16x128 f32 sample is 128 KB),
+// as do samples wider than 128 channels.
 
 #include "fused_common.cuh"
+#include "hourglass_tail.cuh"
 #include "vec8.cuh"
 
 namespace {
@@ -124,6 +131,15 @@ struct Hourglass {
   void *t1, *t2;   // [B, H, W, C/2] ResBlock intermediates
   Level lev[kMaxLevel + 1];
   int idx = 0;     // next ResBlock of the stacked weights
+  // what the call launched: every kernel, the tail kernels among them, and
+  // the tail's dynamic shared memory a block (0 without a tail)
+  int kernels = 0, tails = 0, tail_smem = 0;
+
+  // counts a kernel launch that returned err
+  cudaError_t launched(cudaError_t err) {
+    kernels += err == cudaSuccess;
+    return err;
+  }
 
   void carve(Carver& cv, int H, int W, int level) {
     const size_t top = static_cast<size_t>(B) * H * W * C;
@@ -131,7 +147,9 @@ struct Hourglass {
     cb = static_cast<float*>(cv.take(static_cast<size_t>(B) * C * sizeof(float)));
     t1 = cv.take(top / 2 * es);
     t2 = cv.take(top / 2 * es);
-    for (int lv = level; lv >= 0; --lv) {
+    // the levels above the tail's (which keeps its own in shared memory)
+    for (int lv = level; lv >= 0 && !tail::fits(bf16, H >> (level - lv), W >> (level - lv), C, lv);
+         --lv) {
       const size_t full = top >> (2 * (level - lv));
       lev[lv].x1 = cv.take(full * es);
       lev[lv].p = cv.take(full / 4 * es);
@@ -144,21 +162,24 @@ struct Hourglass {
     const int i = idx++;
     const int ch = C / 2;
     const int hw = h * w;
-    cudaError_t err = fused::norm_stats(bf16, x, s0 + i * C, sb0 + i * C, ca, cb, B, hw, C, kEps, s);
+    cudaError_t err =
+        launched(fused::norm_stats(bf16, x, s0 + i * C, sb0 + i * C, ca, cb, B, hw, C, kEps, s));
     if (err != cudaSuccess) return err;
     fused::ConvArgs c0{x, w0 + static_cast<size_t>(i) * C * ch * es, b0 + i * ch, ca, cb, nullptr,
                        t1, B, h, w, C, ch, 1, fused::kProAct, 0};
-    if ((err = fused::conv(bf16, c0, s)) != cudaSuccess) return err;
-    err = fused::norm_stats(bf16, t1, s1 + i * ch, sb1 + i * ch, ca, cb, B, hw, ch, kEps, s);
+    if ((err = launched(fused::conv(bf16, c0, s))) != cudaSuccess) return err;
+    err = launched(
+        fused::norm_stats(bf16, t1, s1 + i * ch, sb1 + i * ch, ca, cb, B, hw, ch, kEps, s));
     if (err != cudaSuccess) return err;
     fused::ConvArgs c1{t1, w1 + static_cast<size_t>(i) * 9 * ch * ch * es, b1 + i * ch, ca, cb,
                        nullptr, t2, B, h, w, ch, ch, 3, fused::kProAct, 1};
-    if ((err = fused::conv(bf16, c1, s)) != cudaSuccess) return err;
-    err = fused::norm_stats(bf16, t2, s2 + i * ch, sb2 + i * ch, ca, cb, B, hw, ch, kEps, s);
+    if ((err = launched(fused::conv(bf16, c1, s))) != cudaSuccess) return err;
+    err = launched(
+        fused::norm_stats(bf16, t2, s2 + i * ch, sb2 + i * ch, ca, cb, B, hw, ch, kEps, s));
     if (err != cudaSuccess) return err;
     fused::ConvArgs c2{t2, w2 + static_cast<size_t>(i) * ch * C * es, b2 + i * C, ca, cb, x, y, B,
                        h, w, ch, C, 1, fused::kProAct, 0};
-    return fused::conv(bf16, c2, s);
+    return launched(fused::conv(bf16, c2, s));
   }
 
   cudaError_t pool(const void* x, void* y, int h, int w) {
@@ -169,7 +190,7 @@ struct Hourglass {
     else
       maxpool2_kernel<float><<<blocks_for(n8), kThreads, 0, s>>>(
           static_cast<const float*>(x), static_cast<float*>(y), n8, h, w, C);
-    return cudaGetLastError();
+    return launched(cudaGetLastError());
   }
 
   cudaError_t upsample_add(const void* hsmall, const void* skip, void* out, int h, int w) {
@@ -182,12 +203,29 @@ struct Hourglass {
       upsample2_add_kernel<float><<<blocks_for(n8), kThreads, 0, s>>>(
           static_cast<const float*>(hsmall), static_cast<const float*>(skip),
           static_cast<float*>(out), n8, h, w, C);
-    return cudaGetLastError();
+    return launched(cudaGetLastError());
   }
 
   // the traversal of pallas_hourglass.py::_hg_kernel.hg, block by block in
   // the order of the stacked weights
   cudaError_t hg(const void* x, void* out, int h, int w, int lv) {
+    if (tail::fits(bf16, h, w, C, lv)) {
+      const size_t i = static_cast<size_t>(idx);
+      const int ch = C / 2;
+      idx += 2 * lv + 3;
+      const tail::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+                         reinterpret_cast<const __nv_bfloat16*>(w0) + i * C * ch,
+                         reinterpret_cast<const __nv_bfloat16*>(w1) + i * 9 * ch * ch,
+                         reinterpret_cast<const __nv_bfloat16*>(w2) + i * ch * C,
+                         b0 + i * ch, b1 + i * ch, b2 + i * C, s0 + i * C, sb0 + i * C,
+                         s1 + i * ch, sb1 + i * ch, s2 + i * ch, sb2 + i * ch, B, h, w, C, lv};
+      const cudaError_t err = launched(tail::run(a, s));
+      if (err == cudaSuccess) {
+        ++tails;
+        tail_smem = tail::smem_bytes(h, w, C, lv);
+      }
+      return err;
+    }
     const Level& L = lev[lv];
     cudaError_t err;
     if ((err = resblock(x, L.x1, h, w)) != cudaSuccess) return err;
@@ -204,6 +242,7 @@ struct Hourglass {
 // Bytes of device workspace that hourglass_fwd needs for this shape.
 extern "C" size_t hourglass_workspace_bytes(int bf16, int B, int H, int W, int C, int level) {
   Hourglass run{};
+  run.bf16 = bf16 != 0;
   run.B = B;
   run.C = C;
   run.es = bf16 ? 2 : 4;
@@ -218,12 +257,14 @@ extern "C" size_t hourglass_workspace_bytes(int bf16, int B, int H, int W, int C
 // [N,C], s0, sb0 [N,C], s1, sb1, s2, sb2 [N,C/2] f32; N = 2*level+3.
 // workspace holds hourglass_workspace_bytes. H and W are multiples of
 // 2^(level+1), C a multiple of 16, every pointer 16-byte aligned; the caller
-// checks. Returns the first launch's cudaError_t.
+// checks. launched[3] receives what the call launched: the kernels, the tail
+// kernels among them, and the tail's dynamic shared memory a block in bytes
+// (0 without a tail). Returns the first launch's cudaError_t.
 extern "C" int hourglass_fwd(int bf16, const void* x, void* out, const void* w0, const void* w1,
                              const void* w2, const float* b0, const float* b1, const float* b2,
                              const float* s0, const float* sb0, const float* s1, const float* sb1,
                              const float* s2, const float* sb2, void* workspace, int B, int H,
-                             int W, int C, int level, void* stream) {
+                             int W, int C, int level, void* stream, int* launched) {
   if (level < 0 || level > kMaxLevel) return static_cast<int>(cudaErrorInvalidValue);
   Hourglass run{};
   run.bf16 = bf16 != 0;
@@ -238,5 +279,9 @@ extern "C" int hourglass_fwd(int bf16, const void* x, void* out, const void* w0,
   run.s0 = s0; run.sb0 = sb0; run.s1 = s1; run.sb1 = sb1; run.s2 = s2; run.sb2 = sb2;
   Carver cv{static_cast<char*>(workspace)};
   run.carve(cv, H, W, level);
-  return static_cast<int>(run.hg(x, out, H, W, level));
+  const cudaError_t err = run.hg(x, out, H, W, level);
+  launched[0] = run.kernels;
+  launched[1] = run.tails;
+  launched[2] = run.tail_smem;
+  return static_cast<int>(err);
 }

@@ -18,7 +18,11 @@ the TPU kernel's numerics, which differ from the module's:
 ``csrc/hourglass.cu`` holds the kernel (built by ``ops/cuda_lib.py``): a
 host-side recursion over the stacked weights launching K3's statistics and
 conv kernels and its own pool and upsample-add kernels, since a 64x64x128
-sample does not fit an SM the way it fit the TPU's VMEM.
+sample does not fit an SM the way it fit the TPU's VMEM, down to the first
+level whose sub-hourglass fits one block's shared memory (bf16, C a
+multiple of 16 and at most 128, at most 256 pixels at that level; the rule
+is ``tail::fits`` in ``csrc/hourglass_tail.cu``): that one runs as a single
+kernel of one block per sample.
 
 * CPU tensors go to ``hourglass_fused_plain``, the plain PyTorch version;
 * CUDA tensors launch the kernel or raise; there is no fallback.
@@ -27,6 +31,10 @@ The JAX function's ``block_batch`` (samples per grid step in VMEM) has no
 counterpart: every kernel here spans the whole batch.
 
 ``LAUNCHES`` counts ``hourglass_fused`` calls that launched the kernel.
+Each call adds what ``hourglass_fwd`` reports it launched: every kernel to
+``KERNEL_LAUNCHES``, the one-block-per-sample tail kernels to
+``TAIL_LAUNCHES``; ``TAIL_SMEM_BYTES`` is the shared memory a block of the
+last tail launched.
 """
 
 from __future__ import annotations
@@ -38,6 +46,9 @@ import torch
 from pixelwiseregression_tpu_torch.ops import cuda_lib
 
 LAUNCHES = 0
+KERNEL_LAUNCHES = 0
+TAIL_LAUNCHES = 0
+TAIL_SMEM_BYTES = 0
 
 _EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -48,8 +59,8 @@ _ARGTYPES = {
     # (bf16, B, H, W, C, level)
     "hourglass_workspace_bytes": [_I] * 6,
     # (bf16, x, out, w0, w1, w2, b0, b1, b2, s0, sb0, s1, sb1, s2, sb2, workspace,
-    #  B, H, W, C, level, stream)
-    "hourglass_fwd": [_I] + [_P] * 15 + [_I] * 5 + [_P],
+    #  B, H, W, C, level, stream, launched[3])
+    "hourglass_fwd": [_I] + [_P] * 15 + [_I] * 5 + [_P, _P],
 }
 
 
@@ -188,7 +199,7 @@ def hourglass_fused(x, stacked, level: int):
     is ``stack_hourglass_params``'s output (conv weights are cast to x's
     dtype; biases and norm parameters stay f32). Semantics of
     ``pallas_hourglass.hourglass_fused``."""
-    global LAUNCHES
+    global LAUNCHES, KERNEL_LAUNCHES, TAIL_LAUNCHES, TAIL_SMEM_BYTES
     if cuda_lib.on_cpu("hourglass_fused", [x, *stacked.values()]):
         return hourglass_fused_plain(x, stacked, level)
     _check(x, stacked, level)
@@ -200,9 +211,15 @@ def hourglass_fused(x, stacked, level: int):
     wts = [stacked[k].to(x.dtype).contiguous() for k in _WEIGHTS]
     params = [stacked[k].to(torch.float32).contiguous() for k in _PARAMS]
     out = torch.empty_like(x)
+    launched = (ctypes.c_int * 3)()
     rc = cuda_lib.function("hourglass_fwd", _ARGTYPES["hourglass_fwd"])(
         bf16, x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in wts + params),
-        workspace.data_ptr(), bsz, h, w, c, level, torch.cuda.current_stream(x.device).cuda_stream)
+        workspace.data_ptr(), bsz, h, w, c, level, torch.cuda.current_stream(x.device).cuda_stream,
+        ctypes.addressof(launched))
+    KERNEL_LAUNCHES += launched[0]
+    TAIL_LAUNCHES += launched[1]
+    if launched[1]:
+        TAIL_SMEM_BYTES = launched[2]
     cuda_lib.check(rc, "hourglass_fwd")
     LAUNCHES += 1
     return out

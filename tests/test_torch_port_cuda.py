@@ -381,28 +381,45 @@ def _hourglass_state(features, level, seed):
     return hg
 
 
+# (shape, level, kernels a bf16 call launches, kernels an f32 call
+# launches): the bf16 calls run the levels at 16x16 and below as one block
+# per sample (the tail): level 0 at 4x4 and level 1 at 16x16 whole, level 3
+# at 32x32 on K3's kernels above the tail (6 a ResBlock, a pool and an
+# upsample-add, then the tail), level 2 at 16x16 whole with 133 samples
+# (more blocks than the card's 132 SMs); f32 runs every level on K3's
+# kernels (14 a level, 20 at level 0)
+HOURGLASS_CASES = [((2, 16, 16, 32), 1, 1, 34), ((3, 16, 16, 128), 2, 1, 48),
+                   ((5, 4, 4, 128), 0, 1, 20), ((3, 32, 32, 128), 3, 15, 62),
+                   ((133, 16, 16, 128), 2, 1, 48)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape, level", [((2, 16, 16, 32), 1), ((3, 16, 16, 128), 2)])
-def test_hourglass_kernel_matches_plain_version(device, dtype, shape, level):
+@pytest.mark.parametrize("shape, level, kernels_bf16, kernels_f32", HOURGLASS_CASES)
+def test_hourglass_kernel_matches_plain_version(device, dtype, shape, level, kernels_bf16,
+                                                kernels_f32):
     """K4 vs its plain version on the card: level 1 at [2, 16, 16, 32], and
     level 2 at [3, 16, 16, 128] (64-channel 3x3 convs with split taps, the
     128-wide conv tile for the 1x1 64->128 convs, and tiles that span
-    samples at 8x8 and 4x4). f32: atol 1e-4 of the output's scale. bf16:
-    at level 1 at most 4 bf16 ulps of the scale (17 convs and 15 norms
-    deep; an order difference that flips one rounding moves the statistics
-    of every later norm); at both levels a relative L2 gap within the plain
-    version's own bf16-vs-f32 gap, as chip_smoke.py holds the full-width
-    K4: at level 2 (7 ResBlocks) the per-element gap reads 6 ulps, with
-    the conv's earlier wmma loop as with its wgmma loop."""
+    samples at 8x8 and 4x4), and the tail's cases (HOURGLASS_CASES): the
+    call reports the kernels it launched, the tail among them exactly once
+    in bf16 and never in f32. f32: atol 1e-4 of the output's
+    scale. bf16: at levels 0 and 1 at most 4 bf16 ulps of the scale (17
+    convs and 15 norms deep; an order difference that flips one rounding
+    moves the statistics of every later norm); at every level a relative
+    L2 gap within the plain version's own bf16-vs-f32 gap, as chip_smoke.py
+    holds the full-width K4: at level 2 (7 ResBlocks) the per-element gap
+    reads 6 ulps, with the conv's earlier wmma loop as with its wgmma loop."""
     dt = getattr(torch, dtype)
     stacked = {k: v.to(device) for k, v in
                thg.stack_hourglass_params(_hourglass_state(shape[-1], level, 30), level).items()}
     x = torch.from_numpy(np.random.RandomState(31).randn(*shape).astype(np.float32))
     x = x.to(device, dt)
-    before = thg.LAUNCHES
+    before = (thg.LAUNCHES, thg.KERNEL_LAUNCHES, thg.TAIL_LAUNCHES)
     got = thg.hourglass_fused(x, stacked, level)
     torch.cuda.synchronize()
-    assert thg.LAUNCHES == before + 1
+    bf16 = dt == torch.bfloat16
+    assert (thg.LAUNCHES - before[0], thg.KERNEL_LAUNCHES - before[1],
+            thg.TAIL_LAUNCHES - before[2]) == (1, kernels_bf16 if bf16 else kernels_f32, int(bf16))
     want = thg.hourglass_fused_plain(x, stacked, level)
     assert torch.isfinite(got.float()).all()
     if dt == torch.float32:
@@ -412,7 +429,7 @@ def test_hourglass_kernel_matches_plain_version(device, dtype, shape, level):
         gap = float((got.float() - want.float()).norm() / want.float().norm())
         own = float((want.float() - want32).norm() / want32.norm())
         assert gap <= own, (gap, own)
-        if level == 1:
+        if level <= 1:
             assert _bf16_ulps(got, want) <= 4.0
 
 
@@ -555,19 +572,29 @@ def test_norm_relu_cuda_backward_launches_k5(device):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-2)
 
 
+# (B, H, W, C) of build_xm's cases: 14x10 maps (W not a power of two); C =
+# 8 (one 16-byte chunk a column block in bf16); the head shape, 64x64x128;
+# 21x13x40, whose last row tile ends mid-sample; C = 704, rows of more
+# chunks than the block has threads
+BUILD_XM_SHAPES = {"14x10": (3, 14, 10, 24), "c8": (3, 14, 10, 8), "head": (2, 64, 64, 128),
+                   "tile_mid_sample": (2, 21, 13, 40), "wide": (1, 6, 5, 704)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", tap.XM_MODES)
-def test_build_xm_kernel_is_exact(device, mode, dtype):
+@pytest.mark.parametrize("shape", list(BUILD_XM_SHAPES))
+def test_build_xm_kernel_is_exact(device, mode, dtype, shape):
     """The tap operand and its probes on the card, bit-exact against the
-    plain version (14x10 maps: W not a power of two)."""
+    plain version, at each of BUILD_XM_SHAPES."""
     dt = getattr(torch, dtype)
-    x = torch.from_numpy(np.random.RandomState(62).randn(3, 14 * 10, 24).astype(np.float32))
+    b, h, w, c = BUILD_XM_SHAPES[shape]
+    x = torch.from_numpy(np.random.RandomState(62).randn(b, h * w, c).astype(np.float32))
     x = x.to(device, dt)
     before = tap.BUILD_LAUNCHES
-    got = tap.build_xm(x, 14, 10, mode)
+    got = tap.build_xm(x, h, w, mode)
     torch.cuda.synchronize()
     assert tap.BUILD_LAUNCHES == before + 1
-    want = tap.build_xm_plain(x, 14, 10, mode)
+    want = tap.build_xm_plain(x, h, w, mode)
     assert got.shape == want.shape and torch.equal(got.view(torch.int16 if dt == torch.bfloat16
                                                              else torch.int32),
                                                     want.view(torch.int16 if dt == torch.bfloat16

@@ -285,3 +285,85 @@ def test_hourglass_fused_matches_the_port_module(hourglasses, level):
     gap, _ = _scale_gap(got.numpy(), want.numpy())
     print(f"hourglass_fused level {level} vs the port's Hourglass, f32: {gap:.3e} of the scale")
     assert gap <= F32_REL, gap
+
+
+def _plain_split(x, stacked, level, tail):
+    """The plain K4 run as the kernel splits it: the levels above ``tail``
+    ResBlock by ResBlock with the plain version's pieces, then the
+    sub-hourglass at ``tail`` as a call of its own on the stacked weights
+    from its first ResBlock on, the ResBlock index then moving past its
+    2*tail + 3 blocks (the weight offsets of csrc/hourglass.cu's hg)."""
+    idx = [0]
+
+    def take(n):
+        sub = {k: v[idx[0]:idx[0] + n] for k, v in stacked.items()}
+        idx[0] += n
+        return sub
+
+    def resblock(x):
+        p = {k: v[0] if k in ("w0", "w1", "w2") else v[0].float() for k, v in take(1).items()}
+        h = thg._norm_relu_act(x, p["s0"], p["sb0"])
+        h = thg._dot_c(h, p["w0"], p["b0"])
+        h = thg._norm_relu_act(h, p["s1"], p["sb1"])
+        h = thg._conv3x3(h, p["w1"], p["b1"])
+        h = thg._norm_relu_act(h, p["s2"], p["sb2"])
+        return x + thg._dot_c(h, p["w2"], p["b2"])
+
+    def hg(x, lv):
+        if lv == tail:
+            return thg.hourglass_fused_plain(x, take(thg.num_resblocks(lv)), lv)
+        x = resblock(x)
+        bsz, hh, ww, c = x.shape
+        h = x.reshape(bsz, hh // 2, 2, ww // 2, 2, c).amax(dim=(2, 4))
+        h = resblock(hg(h, lv - 1))
+        y = x.reshape(bsz, hh // 2, 2, ww // 2, 2, c) + h[:, :, None, :, None, :]
+        return y.reshape(x.shape)
+
+    return hg(x, level)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("level, tail", [(3, 0), (3, 1), (3, 2), (1, 0)])
+def test_hourglass_plain_split_at_the_tail_is_exact(hourglasses, dtype, level, tail):
+    """The plain K4 run as the kernel splits it (``_plain_split``: the
+    levels above ``tail``, then the sub-hourglass at ``tail`` on the stacked
+    weights from its first ResBlock on) is bit-equal to the unsplit plain
+    version: the tail's ResBlock offsets are right."""
+    h = hourglasses[level]
+    stacked = thg.stack_hourglass_params(h["port"], level)
+    x = _torch(h["x"], getattr(torch, dtype))
+    want = thg.hourglass_fused_plain(x, stacked, level)
+    assert torch.equal(_plain_split(x, stacked, level, tail), want)
+
+
+# name -> (x's shape, dtype, level of the call, error or None) for the
+# wrapper's checks before it launches K4, on stacked weights of level 1 at
+# 16 channels
+HOURGLASS_CHECKS = {
+    "fits": ((2, 16, 16, 16), torch.bfloat16, 1, None),
+    "dtype": ((2, 16, 16, 16), torch.float16, 1, TypeError),
+    "not_nhwc": ((16, 16, 16), torch.float32, 1, ValueError),
+    "side_not_a_multiple": ((2, 18, 16, 16), torch.float32, 1, ValueError),
+    "channels_not_a_multiple": ((2, 16, 16, 24), torch.float32, 1, ValueError),
+    "stack_of_another_level": ((2, 16, 16, 16), torch.float32, 0, ValueError),
+}
+
+
+@pytest.mark.parametrize("case", [*HOURGLASS_CHECKS, "not_contiguous"])
+def test_hourglass_fused_checks_its_inputs(hourglasses, case):
+    """What K4's wrapper refuses before a launch: activations neither f32
+    nor bf16, not 4-D, sides not multiples of 2^(level+1), channels not a
+    multiple of 16, a strided tensor, weights stacked for another level; a
+    well-formed call passes."""
+    stacked = thg.stack_hourglass_params(hourglasses[1]["port"], 1)
+    if case == "not_contiguous":
+        shape, dtype, level, error = (2, 16, 16, 16), torch.float32, 1, ValueError
+        x = torch.zeros(2, 16, 16, 16).transpose(1, 2)
+    else:
+        shape, dtype, level, error = HOURGLASS_CHECKS[case]
+        x = torch.zeros(shape, dtype=dtype)
+    if error is None:
+        thg._check(x, stacked, level)
+    else:
+        with pytest.raises(error):
+            thg._check(x, stacked, level)
