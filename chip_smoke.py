@@ -33,12 +33,14 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 8. K3 against its plain version at batch 256, bf16, for every unit kind
    that the unit engine launches at full width (and one f32 case), with
    cuDNN's conv alone at the same shape as a partial yardstick, each
-   unit's share of its bound and its ratio to cuDNN's conv;
+   unit's share of its bound and its ratio to cuDNN's conv, the kernels a
+   call launches (the conv and one norm kernel per norm) asserted, and the
+   plan of each norm (cluster size, resident or streamed);
 9. K4 against its plain version at [256, 64, 64, 128] bf16, level 4, and
    on its tail's own input ([256, 16, 16, 128], level 2: the levels it
    runs as one block per sample), with the kernels each call reports it
-   launched: the tail once in bf16 and never in f32, asserted, and the
-   launches per call printed;
+   launched (29 in bf16, 76 in f32) and the tail once in bf16 and never
+   in f32, asserted, and the plans of its statistics;
 10. both fused inference engines end to end at full width (NYU: 14
    joints, 2 stages, 128 features, level 4, instance norm, bf16, batch 64)
    on weights made from a seed: the unit engine through 32 K3 and 2 K1
@@ -48,12 +50,16 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 11. a small f32 model with both engines on the card against the CPU;
 12. K5 against its plain version at [128, 64, 64, 128] bf16 and one f32
    case, each with a channel at scale = bias = 0, timed beside ATen's
-   autograd backward of relu(instance_norm);
+   autograd backward of relu(instance_norm), its two kernels a call
+   asserted and its plans printed;
 13. each K6 piece (copy, build_xm and its probes, xm_dots, K3's statistics
    and apply alone) at the head shape, batch 256, against its plain
    version, timed beside Tensor.copy_ (in turns, with both spreads),
-   build_xm's repeat mode in turns with x.repeat(1, 1, 3), and three
-   torch.matmul calls;
+   build_xm's repeat mode in turns with x.repeat(1, 1, 3), three
+   torch.matmul calls, and ATen's relu(instance_norm) forward;
+   then K3's statistics and apply by shape and K4's statistics by launch,
+   by device time (phase_norm_shapes, which also measures a parent tree's
+   package when this file is loaded by path from the parent's directory);
 14. the tools slice: the five A/B and ablation tools of the port
    (pixelwiseregression_tpu_torch/tools) at their default shapes with few
    rounds, each through its kernels, with the launches of K5, K3 and each
@@ -61,11 +67,13 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    side by side.
 
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
-K6's xm_dots (the same loop) or in K4's tail kernel.
+K6's xm_dots (the same loop), in K4's tail kernel or in the norm kernels
+(K3's norm_kernel, K5's nr_kernel).
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
 quotes; then K4's tail kernel's device time a ResBlock in one wave of
-blocks (_tail_per_block).
+blocks (_tail_per_block), and the fused engine's forward at batch 64 by
+kernel, with K4's share (_engine_by_kernel).
 
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
@@ -769,6 +777,13 @@ def phase_fused_units(device):
             assert ulps <= UNIT_ULPS, f"{name}: {ulps:.2f} bf16 ulps apart"
         else:
             assert err <= 1e-4 * float(want.abs().max()), f"{name} f32: {err:.3e}"
+        if pro:
+            _plan_line("fused_chain", dtype, UNIT_BATCH, hw * hw, c, apply=False)
+        if epi:
+            _plan_line("fused_chain", dtype, UNIT_BATCH, hw * hw, co, apply=True)
+        norms, others = _kernels_per_call(kernel)
+        launched = norms + others
+        assert (norms, others) == (pro + epi, 1), f"{name}: {norms} norm kernels, {others} others"
         ms, lib_ms = _median_ms(kernel), _median_ms(library)
         plain_ms = _median_ms(plain, runs=3, iters=5)
         es = x.element_size()
@@ -780,7 +795,7 @@ def phase_fused_units(device):
               f"> 1 ulp apart) kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
               f"library_ms={lib_ms:.5f} (cuDNN conv alone, a partial yardstick) "
               f"bound_ms={bound:.5f} ({by}); share of the bound {bound / ms:.4f}, "
-              f"{ms / lib_ms:.3f}x cuDNN's conv")
+              f"{ms / lib_ms:.3f}x cuDNN's conv; {launched} kernels a call")
         cases[(name, tag)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
                               "shape": [UNIT_BATCH, hw, hw, c, co, k]}
@@ -879,6 +894,51 @@ def _device_time_by_kernel(fn, calls=5):
     return sorted(rows, key=lambda r: -r[2])
 
 
+# substrings of the names of K4's kernels (K3's conv and norm kernels, the
+# tail, the pool, the upsample-add): K4's share of a profiled forward
+K4_KERNELS = ("conv_wgmma_kernel", "conv_f32_kernel", "norm_kernel", "tail_kernel",
+              "maxpool2_kernel", "upsample2_add_kernel")
+
+
+def _device_events(fn, calls):
+    """torch.profiler's device kernels of `calls` calls of fn, after a
+    warm-up: (name, device us) in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.device_time if hasattr(e, "device_time") else e.cuda_time)
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _kernels_per_call(fn):
+    """The kernels one call of fn launches through K3's and K5's launchers,
+    as the library counts them: (norm kernels, others)."""
+    from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
+
+    before = cf.norm_launches()
+    fn()
+    torch.cuda.synchronize()
+    return tuple(a - b for a, b in zip(cf.norm_launches(), before))
+
+
+def _plan_line(kind, dtype, b, hw, c, apply=True):
+    """Prints and returns how a cluster-per-sample norm kernel runs [b, hw,
+    c]: K3's statistics (`apply` False) or statistics and apply, or K5."""
+    from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
+    from pixelwiseregression_tpu_torch.ops import cuda_normrelu as cn
+
+    plan = cn.plan(dtype, b, hw, c) if kind == "normrelu_bwd" else cf.norm_plan(dtype, b, hw, c, apply)
+    form = kind if kind == "normrelu_bwd" else ("statistics and apply" if apply else "statistics")
+    print(f"plan {form} [{b},{hw},{c}] {str(dtype).split('.')[-1]}: cluster of {plan['cluster']} "
+          f"blocks, {plan['path']}, {plan['smem']} bytes of shared memory a block")
+    return plan
+
+
 # the levels at 16x16 and below of the full-width level-4 hourglass, on
 # their own: a level-2 hourglass at a quarter of the side (7 of its 11
 # ResBlocks, 3 of its 5 pools and upsample-adds)
@@ -903,11 +963,18 @@ def phase_hourglass(device):
     from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
 
     full, stacked, x = _hourglass_case(device, H, LEVEL)
+    stats = [(n, us) for name, n, us in full["by_kernel"] if "norm" in name]
+    full.update(statistics_launches=round(sum(n for n, _ in stats)), statistics_us=sum(us for _, us in stats))
     tail_counts = [n for name, n, _ in full.pop("by_kernel") if "tail_kernel" in name]
     assert tail_counts == [1.0], f"torch.profiler: tail_kernel launches per call {tail_counts}"
     kernels, tails = _k4_call_launches(ch, x, stacked, LEVEL)
     kernels32, tails32 = _k4_call_launches(ch, x.float(), stacked, LEVEL)
-    assert (tails, tails32) == (1, 0), (tails, tails32)
+    assert (kernels, tails, kernels32, tails32) == (29, 1, 76, 0), (kernels, tails, kernels32, tails32)
+    # the statistics K4 runs outside the tail: each ResBlock's input (C)
+    # and its two intermediates (C/2), at 64x64, 32x32 and 16x16
+    for side in (H, H // 2, H // 4):
+        for c in (FEATURES, FEATURES // 2):
+            _plan_line("fused_chain", torch.bfloat16, UNIT_BATCH, side * side, c, apply=False)
     smem = ch.TAIL_SMEM_BYTES
     del stacked, x
     _free()
@@ -943,6 +1010,28 @@ def _tail_per_block(device):
               f"{us:.1f} us of device time, {us / ch.num_resblocks(level):.1f} us a ResBlock")
 
 
+def _engine_by_kernel(device):
+    """``--profile``: the fused engine's forward at full width, bf16, batch
+    64, device time by kernel (torch.profiler, 5 forwards): the top rows,
+    and K4's share (its kernels: K3's conv and norm kernels, the tail, the
+    pool and the upsample-add)."""
+    from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply
+
+    model = _engine_model(device, torch.bfloat16)
+    inputs = _engine_inputs(device, ENGINE_BATCH, H, SEED + 71)
+    fwd = make_fused_apply(model)
+    with torch.inference_mode():
+        rows = _device_time_by_kernel(lambda: fwd(*inputs))
+    total = sum(us for _, _, us in rows)
+    k4 = sum(us for name, _, us in rows if any(k in name for k in K4_KERNELS))
+    print(f"profile fused engine NYU stages={STAGES} bf16 batch={ENGINE_BATCH}: {total:.1f} us of "
+          f"device time a forward in {sum(n for _, n, _ in rows):g} kernels; K4's kernels "
+          f"{k4:.1f} us ({k4 / total:.4f})")
+    for name, n, us in rows[:12]:
+        print(f"profile fused engine kernel {us:.1f} us in {n:g} launches ({us / total:.4f}): "
+              f"{name.replace('(anonymous namespace)::', '')[:120]}")
+
+
 def _engine_model(device, dtype, features=FEATURES, level=LEVEL):
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 
@@ -974,7 +1063,8 @@ def _forward_fps(fn, inputs, iters=5):
 def phase_engines(cs, device):
     """Both engines at full width, bf16, batch 64 (the main paths of this
     slice); returns each engine's (K3, K4, K1, K4's tail) launches per
-    forward."""
+    forward, and (norm_unit, norm_fused) the launches of K3's norm kernel
+    in one forward of each."""
     from pixelwiseregression_tpu_torch.models.infer_engine import (make_fused_apply,
                                                                    make_unit_fused_apply)
     from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
@@ -992,6 +1082,12 @@ def phase_engines(cs, device):
         launches[name] = (cf.LAUNCHES, ch.LAUNCHES, cs.LAUNCHES, ch.TAIL_LAUNCHES)
     assert launches["unit"] == (32, 0, STAGES, 0), launches
     assert launches["fused"] == (0, STAGES, STAGES, STAGES), launches
+    # launches of K3's norm kernel (statistics, or statistics and apply) in
+    # a forward: in the unit engine's K3 units and the fused engine's K4
+    for name, fn in engines.items():
+        launches[f"norm_{name}"] = _kernels_per_call(lambda: fn(*inputs))[0]
+    print(f"engine norm kernel launches per forward: unit {launches['norm_unit']}, "
+          f"fused {launches['norm_fused']}")
 
     plain = {name: make(model, plain=True)(*inputs) for name, make in builders.items()}
     model32 = _engine_model(device, torch.float32)
@@ -1104,6 +1200,7 @@ def phase_normrelu(device):
         bias = 0.1 * torch.randn(c, generator=gen, device=device)
         scale[0] = bias[0] = 0.0
         mean, inv = fnr.norm_relu_stats(x)
+        plan = _plan_line("normrelu_bwd", dtype, shape[0], shape[1] * shape[2], c)
 
         def kernel():
             return cn.normrelu_bwd(g, x, mean, inv, scale, bias)
@@ -1137,14 +1234,19 @@ def phase_normrelu(device):
             def library():
                 return torch.autograd.grad(y, leaves, g_nchw, retain_graph=True)
 
+            counts = _kernels_per_call(kernel)
+            assert counts == (1, 1), f"K5 launched {counts} (norm, other) kernels a call"
+            launched = sum(counts)
             ms, plain_ms, lib_ms = _median_ms(kernel), _median_ms(plain, runs=5, iters=5), \
                 _median_ms(library)
             n = x.numel()
             bound, by = _bound(12 * n, 2 * 3 * n + 4 * (2 * shape[0] * c + 4 * c), "f32")
             line += (f" kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
-                     f"(ATen's autograd backward of relu(instance_norm)) bound_ms={bound:.5f} ({by})")
+                     f"(ATen's autograd backward of relu(instance_norm)) bound_ms={bound:.5f} ({by}); "
+                     f"{launched} kernels a call, cluster of {plan['cluster']}, {plan['path']}")
             out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound, "bound_by": by, "shape": list(shape)}
+                   "bound_ms": bound, "bound_by": by, "shape": list(shape),
+                   "kernels_per_call": launched, "cluster": plan["cluster"], "path": plan["path"]}
             del leaves, y
         print(line)
         del x, g, got, want
@@ -1292,15 +1394,114 @@ def phase_ablate(device):
     del x2, w2, xr, got, want
     _free()
 
+    import torch.nn.functional as F
+
     got, want = ap.norm_stats_apply(x, es, eb), ap.norm_stats_apply_plain(x, es, eb)
     torch.cuda.synchronize()
     err, ulps, share = _rounding_gap(got, want)
     assert ulps <= UNIT_ULPS, f"norm_stats_apply: {ulps:.2f} bf16 ulps of the scale"
     del got, want
+    plan = _plan_line("norm_stats_apply", torch.bfloat16, b, hw, c)
+    launched = _kernels_per_call(lambda: ap.norm_stats_apply(x, es, eb))
+    assert launched == (1, 0), f"norm_stats_apply launched {launched} (norm, other) kernels a call"
+    x_nc = x.transpose(1, 2)  # [B, C, HW]: ATen's instance norm over the pixels
+
+    def aten():
+        return F.relu(F.instance_norm(x_nc, weight=es, bias=eb, eps=1e-5))
+
     record("norm_stats_apply", err, lambda: ap.norm_stats_apply(x, es, eb),
-           lambda: ap.norm_stats_apply_plain(x, es, eb), None, _bound(0, 2 * act, "bf16"),
-           f" ({ulps:.2f} ulps of the scale, {share:.2e} of elements > 1 ulp apart)")
+           lambda: ap.norm_stats_apply_plain(x, es, eb), aten, _bound(0, 2 * act, "bf16"),
+           f" ({ulps:.2f} ulps of the scale, {share:.2e} of elements > 1 ulp apart; one kernel a "
+           f"call, a cluster of {plan['cluster']} blocks a sample, {plan['path']}; library: ATen's "
+           f"relu(instance_norm) forward on the same tensor)")
+    out["norm_stats_apply"].update(cluster=plan["cluster"], path=plan["path"])
     del x
+    _free()
+    return out
+
+
+# [B, HW, C] bf16 of K3's statistics and apply timed on their own: the head
+# shape; 64x64 at C/2; the 16x16 level (64 KB and 32 KB samples, a cluster
+# of one block); C = 8 and 16
+NORM_SHAPES = ((UNIT_BATCH, H * W, FEATURES), (UNIT_BATCH, H * W, FEATURES // 2),
+               (UNIT_BATCH, (H // 4) ** 2, FEATURES), (UNIT_BATCH, (H // 4) ** 2, FEATURES // 2),
+               (UNIT_BATCH, H * W, 8), (UNIT_BATCH, H * W, 16))
+
+
+def _launch_device_us(fn, key, launches, calls=3):
+    """Device time (us) of each of the `launches` launches of a kernel
+    whose name holds `key` in one call of fn, in launch order, averaged
+    over `calls` calls (torch.profiler, after a warm-up); None if three
+    sessions each lost some of them. Late in this script's runs the
+    profiler has returned sessions without kernels launched by
+    cudaLaunchKernelEx (the norm kernels' cluster launches)."""
+    for _ in range(3):
+        us = [t for name, t in _device_events(fn, calls) if key in name]
+        if len(us) == launches * calls:
+            return [sum(us[i + k * launches] for k in range(calls)) / calls for i in range(launches)]
+    return None
+
+
+def _graph_us(fn, reps=20, runs=5):
+    """Device time (us) of one call of fn: `reps` calls captured in a CUDA
+    graph after a warm-up, the median over `runs` replays timed by CUDA
+    events, per call (no host work between the kernels, no profiler)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / reps)
+    del graph
+    return statistics.median(times)
+
+
+def phase_norm_shapes(device):
+    """K3's statistics and apply by shape, and K4's statistics by launch,
+    by device time: norm_stats_apply at each of NORM_SHAPES (a call's
+    device time, from a CUDA graph of calls), and each of the 12
+    statistics launches of a level-4 K4 call at [256, 64, 64, 128] bf16 in
+    launch order (torch.profiler; "not measured" if it loses them).
+    It imports the port lazily and reads nothing of it but the wrappers, so
+    that a parent tree's package can be measured by this function in the
+    same call (load this file by path from the parent's directory)."""
+    from pixelwiseregression_tpu_torch.ops import ablate_pieces as ap
+    from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 95)
+    out = {}
+    for b, hw, c in NORM_SHAPES:
+        x = (torch.randn(b, hw, c, generator=gen, device=device) + 2.0).to(torch.bfloat16)
+        es = 1.0 + 0.1 * torch.randn(c, generator=gen, device=device)
+        eb = 0.1 * torch.randn(c, generator=gen, device=device)
+        out[f"{b}x{hw}x{c}"] = _graph_us(lambda: ap.norm_stats_apply(x, es, eb))
+        del x
+    print("norm shapes, norm_stats_apply bf16 device us a call: " +
+          "; ".join(f"[{k.replace('x', ',')}] {v:.2f}" for k, v in out.items()))
+    stacked = {k: v.to(device) for k, v in
+               ch.stack_hourglass_params(_perturbed_hourglass(SEED + 60, LEVEL), LEVEL).items()}
+    x = torch.randn(UNIT_BATCH, H, W, FEATURES, generator=gen, device=device).to(torch.bfloat16)
+    per = _launch_device_us(lambda: ch.hourglass_fused(x, stacked, LEVEL), "norm", 12)
+    print(f"norm shapes, K4 level {LEVEL} [{UNIT_BATCH},{H},{W},{FEATURES}] bf16 statistics by launch: " +
+          ("not measured (torch.profiler lost launches)" if per is None else
+           f"{sum(per):.1f} us in {len(per)} launches: " + ", ".join(f"{v:.1f}" for v in per)))
+    out["k4_statistics_us"] = per
+    del stacked, x
     _free()
     return out
 
@@ -1390,14 +1591,15 @@ def main() -> int:
     lib, log = cuda_lib.build()
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
-        if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots", "tail")) or line.endswith(":"):
+        if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots", "tail", "norm_kernel",
+                                   "nr_kernel")) or line.endswith(":"):
             print("ptxas:", line.strip())
-    _check_no_spill(log, "conv_wgmma_kernel")
-    _check_no_spill(log, "xm_dots_kernel")
-    _check_no_spill(log, "tail_kernel")
+    for kernel in ("conv_wgmma_kernel", "xm_dots_kernel", "tail_kernel", "norm_kernel", "nr_kernel"):
+        _check_no_spill(log, kernel)
     if sys.argv[1:] == ["--profile"]:
         phase_profile(device)
         _tail_per_block(device)
+        _engine_by_kernel(device)
         return 0
 
     fwd = phase_kernel(cs, soft_argmax_decode_flat, device)
@@ -1413,6 +1615,7 @@ def main() -> int:
     phase_engine_reference(device)
     normrelu = phase_normrelu(device)
     pieces = phase_ablate(device)
+    norm_shapes = phase_norm_shapes(device)
     tool_launches = phase_tools()
 
     source = "pixelwiseregression_tpu_torch/csrc/{}.cu"
@@ -1430,12 +1633,22 @@ def main() -> int:
            "descriptors (128-byte swizzle), 256-pixel tiles of four warpgroups, 64-deep K "
            "steps over the flattened taps x K on a 3-stage cp.async ring"),
           ("norm_stats_apply", "fused_chain", "norm_stats_apply", "tools/ablate_fused_unit.py:126",
-           [], "K3's statistics (two passes, fixed order) and apply kernels")]
+           [], "K3's norm kernel (csrc/cluster_norm.cuh): one thread-block cluster a sample, "
+               "its slices in shared memory by bulk copies, the two-pass statistics summed over "
+               "distributed shared memory in rank order, then the apply from shared memory")]
     k6_rows = [{"name": name, "route": "cuda", "source": source.format(src), "replaces": rep,
                 "also_replaces": also, "launches": tool_launches[counter],
                 "launches_by_path": {"tools": tool_launches[counter]}, **pieces[name],
                 "shape": [UNIT_BATCH, H * W, FEATURES], "dtype": "bf16", "design": design}
                for name, src, counter, rep, also, design in k6]
+    k6_rows[-1].update(
+        library="ATen's relu(instance_norm) forward on the same tensor",
+        kernel_launches_by_path={"tools": tool_launches["norm_stats_apply"],
+                                 "unit_engine": engine_launches["norm_unit"],
+                                 "fused_engine": engine_launches["norm_fused"],
+                                 "k4_call": hourglass["statistics_launches"]},
+        by_shape_device_us={k: v for k, v in norm_shapes.items() if k != "k4_statistics_us"},
+        k4_statistics_us=hourglass["statistics_us"])
     main_fwd = fwd[(TRAIN_BATCH, "f32")]
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _decoder_bounds(TRAIN_BATCH)
     head = units[("head_conv", "bf16")]
@@ -1491,7 +1704,11 @@ def main() -> int:
          "replaces": "pixelwiseregression_tpu/ops/fused_normrelu.py:124",
          "launches": tool_launches["K5"], "launches_by_path": {"tools": tool_launches["K5"]},
          **normrelu, "dtype": "bf16",
-         "unit": "library_ms is ATen's autograd backward of relu(instance_norm)"},
+         "unit": "library_ms is ATen's autograd backward of relu(instance_norm)",
+         "design": "one thread-block cluster a sample (csrc/cluster_norm.cuh): x resident in "
+                   "shared memory where the cluster holds it, g beside it or through a ring; "
+                   "the sums over distributed shared memory in rank order, dx from shared "
+                   "memory; then the per-channel sums over the samples"},
         *k6_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,14 +16,15 @@
 // 64->128 and 128->128 (the head unit is 309 GFLOP against 0.54 GB of
 // activations), device-memory bytes for the rest (the 1x1 units, and the
 // 3x3 units at 32->64 and 64->64, whose operations take less time than
-// their bytes). The TPU kernel kept a whole sample ([HW, C], 1-2 MiB) in
-// VMEM to take both passes of the statistics there; an SM's 227 KB of
-// shared memory cannot hold one, so here the statistics go through device
-// memory, and a unit is three kernels:
-//   * norm_stats_kernel: one block per (sample, 32 channels), 8 pixel rows
-//     of 32 channel lanes, both passes in a fixed order (deterministic, no
-//     atomics); it folds the affine into a = rsqrt(var+eps)*scale and
-//     b = bias - mean*a;
+// their bytes), and bytes alone for the norms. The TPU kernel kept a whole
+// sample ([HW, C], 1-2 MiB) in VMEM to take both passes of the statistics
+// there; here a unit is at most three kernels:
+//   * norm_kernel<T, false>, the prologue statistics: one thread-block
+//     cluster a sample, whose blocks hold the sample's slices in shared
+//     memory (cluster_norm.cuh), so x leaves device memory once (a sample
+//     too large for the cluster is streamed, each pass reading it again);
+//     both passes in a fixed order (deterministic, no atomics); it folds
+//     the affine into a = rsqrt(var+eps)*scale and b = bias - mean*a;
 //   * the conv, an implicit GEMM over M = B*H*W pixels, N = Co, K = k*k*C,
 //     with the prologue applied to each input tile once it has landed:
 //       - bf16 (conv_wgmma_kernel): 256 pixels by 64 or 128 output channels
@@ -33,7 +34,7 @@
 //         (8 chunks of 8 channels over the flattened taps x channels, so
 //         C = 32 takes two taps a step), in rows of 128 bytes under the
 //         128-byte swizzle, over a ring of three stages filled by cp.async:
-//         the products of step s run while the threads issue step s+2's
+//         the products of step s run while the threads start step s+2's
 //         copies and wait for, normalise and fence step s+1's; one barrier
 //         per step. Eight threads copy one pixel's (or one weight row's)
 //         128 contiguous bytes, which the swizzle spreads over all 32 banks:
@@ -44,16 +45,18 @@
 //     the epilogue adds the bias (and the skip) from a shared-memory copy of
 //     the accumulators, with K4's split taps (even and odd taps summed
 //     apart) as two passes over the K loop in bf16;
-//   * norm_apply_kernel: the epilogue norm, one pass over the conv output.
-// A unit therefore reads its input twice for the prologue statistics and
+//   * norm_kernel<T, true>, the epilogue: the same cluster kernel, which
+//     also writes [skip +] relu(x*a + b) from the slice it holds.
+// A unit therefore reads its input once for the prologue statistics and
 // once per tap for the conv (from L2 after the first), and writes the
-// pre-norm conv output once more when it has an epilogue. Every block
-// streams the whole weight tensor through L2. Later work: TMA loads (with
-// multicast of the weights across a cluster) and a warp-specialised
-// producer for the ring, a persistent grid, the epilogue statistics summed
-// by the conv itself with the apply folded into the next unit's prologue,
-// and a tile that loads its input once for all nine taps.
+// pre-norm conv output once more, and reads it once, when it has an
+// epilogue. Every block streams the whole weight tensor through L2. Later
+// work: TMA loads (with multicast of the weights across a cluster) and a
+// warp-specialised producer for the ring, a persistent grid, the epilogue
+// statistics summed by the conv itself with the apply folded into the next
+// unit's prologue, and a tile that loads its input once for all nine taps.
 
+#include "cluster_norm.cuh"
 #include "fused_common.cuh"
 #include "sm90_wgmma.cuh"
 #include "vec8.cuh"
@@ -93,9 +96,6 @@ static_assert(kRowBytes == sm90::kSwRow, "a K step is one swizzled row");
 constexpr int kRowsPerPass = kWgThreads / kChunks;  // rows the threads copy at once
 constexpr int kWgAPer = kWgBM / kRowsPerPass;       // A chunks per thread and step
 constexpr int kWgABytes = kWgBM * kRowBytes;
-// statistics and apply
-constexpr int kStatRows = 8;       // pixel rows of the statistics block
-constexpr int kApplyThreads = 256;
 
 template <int BN>
 __host__ __device__ constexpr int wg_stage_bytes() { return kWgABytes + kWgBK * BN * 2; }
@@ -115,85 +115,115 @@ constexpr size_t f32_smem_bytes() {
   return main > epi ? main : epi;
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ------------------------------------------------- statistics and apply
 
-// ---------------------------------------------------------------- statistics
+struct NormArgs {
+  const void* x;       // [B, HW, C]
+  const float* scale;  // [C]
+  const float* bias;
+  float* a;            // [B, C] coefficients out, or null
+  float* b;
+  const void* skip;    // [B, HW, C] added after the apply, or null
+  void* y;             // [B, HW, C] (kApply)
+  float eps;
+};
 
-// grid (ceil(C/32), B); 32 channel lanes x kStatRows pixel rows.
-template <typename T>
-__global__ void __launch_bounds__(32 * kStatRows) norm_stats_kernel(
-    const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ a, float* __restrict__ b, int HW, int C, float eps) {
-  __shared__ float part[kStatRows][32];
-  const int lane = threadIdx.x & 31;
-  const int row = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane;
-  const int n = blockIdx.y;
-  const bool on = c < C;
-  const T* xs = x + static_cast<size_t>(n) * HW * C + c;
-
-  float s = 0.f;
-  if (on)
-    for (int p = row; p < HW; p += kStatRows) s += to_f32(xs[static_cast<size_t>(p) * C]);
-  part[row][lane] = s;
-  __syncthreads();
-  float mean = 0.f;
+// One cluster per sample (cluster_norm.cuh): the exact two-pass mean and
+// biased variance of each channel, a = rsqrt(var+eps)*scale and
+// b = bias - mean*a (stored by rank 0 where a is given), and with kApply
+// y = [skip +] round(relu(x*a + b)) from the slice in shared memory.
+template <typename T, bool kApply>
+__global__ void __launch_bounds__(cnorm::kThreads, 1) norm_kernel(const __grid_constant__ cnorm::Plan p,
+                                                               const NormArgs args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int V = cnorm::vec<T>();
+  const int n = blockIdx.x / p.cs;
+  const int rank = blockIdx.x % p.cs;
+  const size_t sample = static_cast<size_t>(n) * p.HW * p.C;
+  const T* x = static_cast<const T*>(args.x) + sample;
+  cnorm::Slices<T, 1> sl(p, smem, {x}, rank);
+  const int r_first = rank * p.slice;  // the slice's first pixel in the sample
+  float* mu = sl.coef();
+  float* ca = mu + p.cw;
+  float* cb = ca + p.cw;
+  for (int c0 = 0; c0 < p.C; c0 += p.cw) {
+    const cnorm::Lanes<V> l(c0, min(p.cw, p.C - c0));
+    const int cc = l.channel();
+    // this thread's first channel's scale and bias, fetched ahead of the reductions
+    const bool own = threadIdx.x < l.ccw;
+    const float scale0 = own ? args.scale[c0 + threadIdx.x] : 0.f;
+    const float bias0 = own ? args.bias[c0 + threadIdx.x] : 0.f;
+    float acc[1][V] = {};
+    sl.pass([&](const T* const (&at)[1], int, int rows) {
+      if (l.on)
+        cnorm::each_row(l, at, p.C, rows, [&](const float (&v)[1][V], int) {
 #pragma unroll
-  for (int r = 0; r < kStatRows; ++r) mean += part[r][lane];
-  mean = mean / static_cast<float>(HW);
-  __syncthreads();
-
-  float q = 0.f;
-  if (on)
-    for (int p = row; p < HW; p += kStatRows) {
-      const float d = to_f32(xs[static_cast<size_t>(p) * C]) - mean;
-      q = fmaf(d, d, q);
+          for (int j = 0; j < V; ++j) acc[0][j] += v[0][j];
+        });
+    });
+    const float* tot = sl.reduce(acc, l, false);
+    for (int c = threadIdx.x; c < l.ccw; c += cnorm::kThreads) mu[c] = tot[c] / static_cast<float>(p.HW);
+    __syncthreads();
+    float m[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) m[j] = l.on ? mu[l.gi * V + j] : 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[0][j] = 0.f;
+    sl.pass([&](const T* const (&at)[1], int, int rows) {
+      if (l.on)
+        cnorm::each_row(l, at, p.C, rows, [&](const float (&v)[1][V], int) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float d = v[0][j] - m[j];
+            acc[0][j] = fmaf(d, d, acc[0][j]);
+          }
+        });
+    });
+    tot = sl.reduce(acc, l, c0 + p.cw >= p.C);
+    for (int c = threadIdx.x; c < l.ccw; c += cnorm::kThreads) {
+      const float var = tot[c] / static_cast<float>(p.HW);
+      const float inv = 1.0f / sqrtf(var + args.eps);
+      const bool first = c == static_cast<int>(threadIdx.x);
+      const float ai = __fmul_rn(inv, first ? scale0 : args.scale[c0 + c]);
+      const float bi = __fsub_rn(first ? bias0 : args.bias[c0 + c], __fmul_rn(mu[c], ai));
+      ca[c] = ai;
+      cb[c] = bi;
+      if (rank == 0 && args.a != nullptr) {
+        args.a[static_cast<size_t>(n) * p.C + c0 + c] = ai;
+        args.b[static_cast<size_t>(n) * p.C + c0 + c] = bi;
+      }
     }
-  part[row][lane] = q;
-  __syncthreads();
-  if (row == 0 && on) {
-    float var = 0.f;
+    if constexpr (kApply) {
+      __syncthreads();
+      float a[V], b[V];
 #pragma unroll
-    for (int r = 0; r < kStatRows; ++r) var += part[r][lane];
-    var = var / static_cast<float>(HW);
-    const float inv = 1.0f / sqrtf(var + eps);
-    const float ai = __fmul_rn(inv, scale[c]);
-    a[static_cast<size_t>(n) * C + c] = ai;
-    b[static_cast<size_t>(n) * C + c] = __fsub_rn(bias[c], __fmul_rn(mean, ai));
+      for (int j = 0; j < V; ++j) {
+        a[j] = l.on ? ca[l.gi * V + j] : 0.f;
+        b[j] = l.on ? cb[l.gi * V + j] : 0.f;
+      }
+      const T* skip = args.skip != nullptr ? static_cast<const T*>(args.skip) + sample : nullptr;
+      T* y = static_cast<T*>(args.y) + sample;
+      sl.pass([&](const T* const (&at)[1], int r0, int rows) {
+        if (l.on)
+          cnorm::each_row(l, at, p.C, rows, [&](const float (&in)[1][V], int q) {
+            float v[V];
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              v[j] = round_act<T>(fmaxf(__fadd_rn(__fmul_rn(in[0][j], a[j]), b[j]), 0.f));
+            const int e = (r_first + r0 + q) * p.C + cc;
+            if (skip != nullptr) {
+              float s[V];
+              cnorm::ld16(skip + e, s);
+#pragma unroll
+              for (int j = 0; j < V; ++j) v[j] = __fadd_rn(v[j], s[j]);
+            }
+            cnorm::st16(y + e, v);
+          });
+      });
+    }
+    __syncthreads();  // mu, ca and cb are read before the next chunk writes them
   }
-}
-
-// ---------------------------------------------------------------- norm apply
-
-// one thread per 8 channels of a pixel
-template <typename T>
-__global__ void __launch_bounds__(kApplyThreads) norm_apply_kernel(
-    const T* __restrict__ y, const float* __restrict__ a, const float* __restrict__ b,
-    const T* __restrict__ skip, T* __restrict__ z, size_t n8, int HW, int C) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * kApplyThreads + threadIdx.x;
-  if (i >= n8) return;
-  const size_t e = i * kVec;
-  const int c = static_cast<int>(e % C);
-  const size_t nc = (e / (static_cast<size_t>(HW) * C)) * C + c;
-  float v[kVec];
-  load8(y + e, v);
-#pragma unroll
-  for (int k = 0; k < kVec; ++k)
-    v[k] = round_act<T>(fmaxf(__fadd_rn(__fmul_rn(v[k], a[nc + k]), b[nc + k]), 0.f));
-  if (skip != nullptr) {
-    float s[kVec];
-    load8(skip + e, s);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) v[k] = __fadd_rn(v[k], s[k]);
-  }
-  store8(z + e, v);
+  sl.finish();
 }
 
 // ---------------------------------------------------------------- conv
@@ -562,23 +592,30 @@ __global__ void __launch_bounds__(kWgThreads, 1) conv_wgmma_kernel(const ConvArg
   store_tile<__nv_bfloat16, kWgBM, BN, kWgThreads>(Cs, CS, p, m0, n0, M);
 }
 
-template <typename T>
-cudaError_t launch_stats(const void* x, const float* scale, const float* bias, float* a,
-                         float* b, int B, int HW, int C, float eps, cudaStream_t s) {
-  const dim3 grid((C + 31) / 32, B);
-  norm_stats_kernel<T><<<grid, 32 * kStatRows, 0, s>>>(static_cast<const T*>(x), scale, bias, a,
-                                                       b, HW, C, eps);
-  return cudaGetLastError();
+// K3's statistics (kApply false) or statistics and apply on one cluster a
+// sample; out, if given, receives the plan (cnorm::describe).
+template <typename T, bool kApply>
+cudaError_t launch_norm(const NormArgs& args, int B, int HW, int C, cudaStream_t s, int* out) {
+  static bool large = false;
+  static const cudaError_t ready = cnorm::prepare(norm_kernel<T, kApply>, &large);
+  if (ready != cudaSuccess) return ready;
+  if (static_cast<long long>(HW) * C >= (1LL << 31)) return cudaErrorInvalidValue;
+  const cnorm::Plan p = cnorm::plan(1, sizeof(T), 1, kApply ? 3 : 2, B, HW, C, large);
+  if (p.smem == 0) return cudaErrorInvalidValue;
+  if (out != nullptr) {
+    cnorm::describe(p, out);
+    return cudaSuccess;
+  }
+  return cnorm::launch(norm_kernel<T, kApply>, p, s, p, args);
 }
 
-template <typename T>
-cudaError_t launch_apply(const void* y, const float* a, const float* b, const void* skip, void* z,
-                         int B, int HW, int C, cudaStream_t s) {
-  const size_t n8 = static_cast<size_t>(B) * HW * C / kVec;
-  const unsigned blocks = static_cast<unsigned>((n8 + kApplyThreads - 1) / kApplyThreads);
-  norm_apply_kernel<T><<<blocks, kApplyThreads, 0, s>>>(
-      static_cast<const T*>(y), a, b, static_cast<const T*>(skip), static_cast<T*>(z), n8, HW, C);
-  return cudaGetLastError();
+cudaError_t norm(bool bf16, bool apply, const NormArgs& args, int B, int HW, int C, cudaStream_t s,
+                 int* out = nullptr) {
+  if (bf16)
+    return apply ? launch_norm<__nv_bfloat16, true>(args, B, HW, C, s, out)
+                 : launch_norm<__nv_bfloat16, false>(args, B, HW, C, s, out);
+  return apply ? launch_norm<float, true>(args, B, HW, C, s, out)
+               : launch_norm<float, false>(args, B, HW, C, s, out);
 }
 
 template <bool kSplit>
@@ -586,7 +623,7 @@ cudaError_t launch_conv_f32(const ConvArgs& p, cudaStream_t s) {
   const size_t m = static_cast<size_t>(p.B) * p.H * p.W;
   const dim3 grid(static_cast<unsigned>((m + kBM - 1) / kBM), (p.Co + kBN - 1) / kBN);
   conv_f32_kernel<kSplit><<<grid, kConvThreads, f32_smem_bytes(), s>>>(p);
-  return cudaGetLastError();
+  return cnorm::count(cudaGetLastError(), 1);
 }
 
 template <int BN, bool kSplit>
@@ -598,7 +635,7 @@ cudaError_t launch_conv_wgmma(const ConvArgs& p, cudaStream_t s) {
   const size_t m = static_cast<size_t>(p.B) * p.H * p.W;
   const dim3 grid(static_cast<unsigned>((m + kWgBM - 1) / kWgBM), (p.Co + BN - 1) / BN);
   conv_wgmma_kernel<BN, kSplit><<<grid, kWgThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  return cnorm::count(cudaGetLastError(), 1);
 }
 
 // 128 output channels a block where Co allows it, but 64 with split taps,
@@ -613,14 +650,7 @@ cudaError_t launch_conv_bf16(const ConvArgs& p, cudaStream_t s) {
 
 cudaError_t norm_stats(bool bf16, const void* x, const float* scale, const float* bias, float* a,
                        float* b, int B, int HW, int C, float eps, cudaStream_t s) {
-  return bf16 ? launch_stats<__nv_bfloat16>(x, scale, bias, a, b, B, HW, C, eps, s)
-              : launch_stats<float>(x, scale, bias, a, b, B, HW, C, eps, s);
-}
-
-cudaError_t norm_apply(bool bf16, const void* y, const float* a, const float* b, const void* skip,
-                       void* z, int B, int HW, int C, cudaStream_t s) {
-  return bf16 ? launch_apply<__nv_bfloat16>(y, a, b, skip, z, B, HW, C, s)
-              : launch_apply<float>(y, a, b, skip, z, B, HW, C, s);
+  return norm(bf16, false, NormArgs{x, scale, bias, a, b, nullptr, nullptr, eps}, B, HW, C, s);
 }
 
 cudaError_t conv(bool bf16, const ConvArgs& p, cudaStream_t s) {
@@ -656,9 +686,8 @@ extern "C" int fused_unit(int bf16, const void* x, const void* w, const float* b
                        pro ? fused::kProF32 : fused::kProNone, 0};
   err = fused::conv(bf16, args, s);
   if (err != cudaSuccess || !epi) return static_cast<int>(err);
-  err = fused::norm_stats(bf16, tmp, epi_scale, epi_bias, coef_a, coef_b, B, H * W, Co, eps, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(fused::norm_apply(bf16, tmp, coef_a, coef_b, skip, y, B, H * W, Co, s));
+  return static_cast<int>(fused::norm(
+      bf16, true, fused::NormArgs{tmp, epi_scale, epi_bias, coef_a, coef_b, skip, y, eps}, B, H * W, Co, s));
 }
 
 // K3's statistics and apply alone, y = round(relu(x*a + b)) with a, b from
@@ -668,8 +697,21 @@ extern "C" int fused_unit(int bf16, const void* x, const void* w, const float* b
 extern "C" int norm_stats_apply(int bf16, const void* x, const float* scale, const float* bias,
                                 void* y, float* coef_a, float* coef_b, int B, int HW, int C,
                                 float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = fused::norm_stats(bf16, x, scale, bias, coef_a, coef_b, B, HW, C, eps, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(fused::norm_apply(bf16, x, coef_a, coef_b, nullptr, y, B, HW, C, s));
+  return static_cast<int>(fused::norm(bf16, true,
+                                      fused::NormArgs{x, scale, bias, coef_a, coef_b, nullptr, y, eps},
+                                      B, HW, C, static_cast<cudaStream_t>(stream)));
 }
+
+// The plan K3's statistics (apply 0) or statistics and apply (apply 1)
+// would run for [B, HW, C]: out[4] = cluster size, resident tensors (bit
+// 0: x), ring slots (0: resident), shared memory a block. Returns a
+// cudaError_t.
+extern "C" int norm_plan(int bf16, int apply, int B, int HW, int C, int* out) {
+  return static_cast<int>(fused::norm(bf16, apply, fused::NormArgs{}, B, HW, C, nullptr, out));
+}
+
+// Kernels that K3's and K5's launchers have launched in this process (K4's
+// convs and statistics among them): kind 0 the norm kernels (K3's
+// statistics and apply, K5's nr_kernel), kind 1 the others (the convs,
+// K5's parameter sums).
+extern "C" long long norm_launches(int kind) { return cnorm::launched()[kind != 0]; }

@@ -1,8 +1,8 @@
 // The pieces of the fused conv + instance-norm unit (K3, fused_chain.cu) that
 // the whole-hourglass kernel (K4, hourglass.cu) runs too: the per-(sample,
-// channel) norm statistics, the implicit-GEMM conv with its norm prologue,
-// and the norm apply. Host launchers with C++ linkage, defined in
-// fused_chain.cu. Activations are NHWC in the act dtype (bf16 or f32); conv
+// channel) norm statistics (one thread-block cluster a sample,
+// cluster_norm.cuh) and the implicit-GEMM conv with its norm prologue.
+// Host launchers with C++ linkage, defined in fused_chain.cu. Activations are NHWC in the act dtype (bf16 or f32); conv
 // weights are HWIO, [k*k, C, Co], in the act dtype; everything else is f32.
 // Each launcher enqueues on the given stream, allocates nothing and returns
 // the launch's cudaError_t.
@@ -35,14 +35,11 @@ struct ConvArgs {
 
 // a = rsqrt(var + eps) * scale and b = bias - mean * a per (n, c), from the
 // exact two-pass mean and biased variance over the H*W pixels of x, in f32.
+// H*W*C must be below 2^31.
 cudaError_t norm_stats(bool bf16, const void* x, const float* scale, const float* bias,
                        float* a, float* b, int B, int HW, int C, float eps, cudaStream_t s);
 
 // y = [skip +] round(conv(prologue(x)) + bias), f32 accumulation.
 cudaError_t conv(bool bf16, const ConvArgs& args, cudaStream_t s);
-
-// z = [skip +] round(relu(y*a + b)), in f32 from y's act-dtype values.
-cudaError_t norm_apply(bool bf16, const void* y, const float* a, const float* b,
-                       const void* skip, void* z, int B, int HW, int C, cudaStream_t s);
 
 }  // namespace fused

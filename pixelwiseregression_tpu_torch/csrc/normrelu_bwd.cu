@@ -16,48 +16,33 @@
 // What bounds it: device-memory bytes (g and x read, dx written: 6 bytes an
 // element in bf16, ~12 f32 operations). The TPU kernel held a sample's g
 // and x (2 MiB in bf16 at [64*64, 128]) in VMEM to take the reductions and
-// the dx pass on one read; an SM's 227 KB cannot, so here they go through
-// device memory, in a fixed order and without atomics:
-//   * nr_partial_kernel: one block per (sample, chunk of kChunk pixels),
-//     8 channels a thread (16-byte loads), sums gm and gm*xhat into f32
-//     partials per (sample, chunk, channel);
-//   * nr_dx_kernel: the same blocks; each sums its sample's partials in
-//     chunk order into mean(gm) and mean(gm*xhat), then writes dx; the
-//     chunk-0 block also stores the per-sample sums;
-//   * nr_param_kernel: dscale and dbias, summed over the samples in order.
-// g and x are read twice: 10 bytes an element against the bound's 6.
-// Keeping a sample resident in a thread-block cluster's shared memory is
-// later work.
+// the dx pass on one read. Here a sample is one thread-block cluster
+// (cluster_norm.cuh) whose blocks hold its slices of g and x in shared
+// memory: nr_kernel sums gm and gm*xhat as the slices land, combines the
+// blocks' sums over distributed shared memory in rank order (pixel-slice
+// order, fixed, no atomics), writes dx from shared memory, and its rank-0
+// block stores the per-sample sums; nr_param_kernel sums those over the
+// samples in order into dscale and dbias. Two launches a call. Where the
+// cluster cannot hold both tensors, x stays resident and g is read twice
+// through a ring; where it cannot hold x either, both stream.
 
+#include "cluster_norm.cuh"
 #include "vec8.cuh"
 
 namespace {
 
-using pwr::kVec;
-using pwr::load8;
 using pwr::round_act;
-using pwr::store8;
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 512;  // pixels per block
 constexpr int kParamThreads = 128;
 
-__host__ __device__ inline int chunks(int HW) { return (HW + kChunk - 1) / kChunk; }
-
-// The block's shape: G = C/8 channel groups by R pixel rows.
-struct Tile {
-  int G, R;
-  __host__ __device__ explicit Tile(int C)
-      : G(C / kVec), R(kThreads / G > 0 ? kThreads / G : 1) {}
-};
-
-// The per-channel constants of one thread's 8 channels.
+// The per-channel constants of one thread's V channels.
+template <int V>
 struct Coef {
-  float mu[kVec], iv[kVec], a[kVec], b[kVec];
-  __device__ Coef(const float* mean, const float* inv, const float* scale, const float* bias,
-                  size_t nc, int c) {
+  float mu[V], iv[V], a[V], b[V];
+  __device__ void load(const float* mean, const float* inv, const float* scale, const float* bias,
+                       size_t nc, int c) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
+    for (int j = 0; j < V; ++j) {
       mu[j] = mean[nc + j];
       iv[j] = inv[nc + j];
       a[j] = __fmul_rn(iv[j], scale[c + j]);
@@ -66,105 +51,87 @@ struct Coef {
   }
 };
 
-// gm and xhat of 8 elements
-template <typename T>
-__device__ __forceinline__ void masked(const Coef& k, const T* g, const T* x, float gm[kVec],
-                                       float xhat[kVec]) {
-  float xv[kVec];
-  load8(x, xv);
-  load8(g, gm);
+// gm and xhat of V elements from their g and x
+template <typename T, int V>
+__device__ __forceinline__ void masked(const Coef<V>& k, const float (&gx)[2][V], float (&gm)[V],
+                                       float (&xhat)[V]) {
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const float y = round_act<T>(__fadd_rn(__fmul_rn(xv[j], k.a[j]), k.b[j]));
-    if (!(y > 0.f)) gm[j] = 0.f;
-    xhat[j] = __fmul_rn(__fsub_rn(xv[j], k.mu[j]), k.iv[j]);
+  for (int j = 0; j < V; ++j) {
+    const float y = round_act<T>(__fadd_rn(__fmul_rn(gx[1][j], k.a[j]), k.b[j]));
+    gm[j] = y > 0.f ? gx[0][j] : 0.f;
+    xhat[j] = __fmul_rn(__fsub_rn(gx[1][j], k.mu[j]), k.iv[j]);
   }
 }
 
-// grid (chunks, B); dynamic shared memory 2*R*C floats
+struct NrArgs {
+  const void* g;  // [B, HW, C]
+  const void* x;
+  const float* mean;  // [B, C]
+  const float* inv;
+  const float* scale;  // [C]
+  const float* bias;
+  float* sum_g;  // [B, C] out
+  float* sum_gx;
+  void* dx;  // [B, HW, C] out
+};
+
+// One cluster per sample; tensor 0 is g, tensor 1 x.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) nr_partial_kernel(
-    const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ mean,
-    const float* __restrict__ inv, const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ part_g, float* __restrict__ part_gx, int HW, int C) {
-  extern __shared__ float red[];
-  const Tile t(C);
-  const int n = blockIdx.y, k = blockIdx.x, nk = gridDim.x;
-  const int gi = threadIdx.x % t.G, r = threadIdx.x / t.G;
-  const int c = gi * kVec;
-  const int p1 = min(HW, (k + 1) * kChunk);
-  float sg[kVec] = {}, sgx[kVec] = {};
-  if (r < t.R) {
-    const Coef coef(mean, inv, scale, bias, static_cast<size_t>(n) * C + c, c);
-    for (int p = k * kChunk + r; p < p1; p += t.R) {
-      const size_t e = (static_cast<size_t>(n) * HW + p) * C + c;
-      float gm[kVec], xhat[kVec];
-      masked(coef, g + e, x + e, gm, xhat);
+__global__ void __launch_bounds__(cnorm::kThreads, 1) nr_kernel(const __grid_constant__ cnorm::Plan p,
+                                                             const NrArgs args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int V = cnorm::vec<T>();
+  const int n = blockIdx.x / p.cs;
+  const int rank = blockIdx.x % p.cs;
+  const size_t sample = static_cast<size_t>(n) * p.HW * p.C;
+  cnorm::Slices<T, 2> sl(
+      p, smem, {static_cast<const T*>(args.g) + sample, static_cast<const T*>(args.x) + sample}, rank);
+  const int r_first = rank * p.slice;
+  T* dx = static_cast<T*>(args.dx) + sample;
+  for (int c0 = 0; c0 < p.C; c0 += p.cw) {
+    const cnorm::Lanes<V> l(c0, min(p.cw, p.C - c0));
+    const int cc = l.channel();
+    Coef<V> k;
+    if (l.on) k.load(args.mean, args.inv, args.scale, args.bias, static_cast<size_t>(n) * p.C + cc, cc);
+    float acc[2][V] = {};
+    sl.pass([&](const T* const (&at)[2], int, int rows) {
+      if (l.on)
+        cnorm::each_row(l, at, p.C, rows, [&](const float (&gx)[2][V], int) {
+          float gm[V], xhat[V];
+          masked<T>(k, gx, gm, xhat);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        sg[j] = __fadd_rn(sg[j], gm[j]);
-        sgx[j] = __fadd_rn(sgx[j], __fmul_rn(gm[j], xhat[j]));
+          for (int j = 0; j < V; ++j) {
+            acc[0][j] = __fadd_rn(acc[0][j], gm[j]);
+            acc[1][j] = __fadd_rn(acc[1][j], __fmul_rn(gm[j], xhat[j]));
+          }
+        });
+    });
+    const float* tot = sl.reduce(acc, l, c0 + p.cw >= p.C);
+    if (rank == 0)
+      for (int c = threadIdx.x; c < l.ccw; c += cnorm::kThreads) {
+        args.sum_g[static_cast<size_t>(n) * p.C + c0 + c] = tot[c];
+        args.sum_gx[static_cast<size_t>(n) * p.C + c0 + c] = tot[p.cw + c];
       }
-    }
+    float mg[V], mgx[V];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      red[r * C + c + j] = sg[j];
-      red[(t.R + r) * C + c + j] = sgx[j];
+    for (int j = 0; j < V; ++j) {
+      mg[j] = l.on ? __fdiv_rn(tot[l.gi * V + j], static_cast<float>(p.HW)) : 0.f;
+      mgx[j] = l.on ? __fdiv_rn(tot[p.cw + l.gi * V + j], static_cast<float>(p.HW)) : 0.f;
     }
-  }
-  __syncthreads();
-  for (int cc = threadIdx.x; cc < C; cc += blockDim.x) {
-    float s = 0.f, sx = 0.f;
-    for (int rr = 0; rr < t.R; ++rr) {
-      s = __fadd_rn(s, red[rr * C + cc]);
-      sx = __fadd_rn(sx, red[(t.R + rr) * C + cc]);
-    }
-    const size_t o = (static_cast<size_t>(n) * nk + k) * C + cc;
-    part_g[o] = s;
-    part_gx[o] = sx;
-  }
-}
-
-// grid (chunks, B); dynamic shared memory 2*C floats
-template <typename T>
-__global__ void __launch_bounds__(kThreads) nr_dx_kernel(
-    const T* __restrict__ g, const T* __restrict__ x, const float* __restrict__ mean,
-    const float* __restrict__ inv, const float* __restrict__ scale, const float* __restrict__ bias,
-    const float* __restrict__ part_g, const float* __restrict__ part_gx, float* __restrict__ sum_g,
-    float* __restrict__ sum_gx, T* __restrict__ dx, int HW, int C) {
-  extern __shared__ float mom[];  // mean(gm) [C], mean(gm*xhat) [C]
-  const Tile t(C);
-  const int n = blockIdx.y, k = blockIdx.x, nk = gridDim.x;
-  for (int cc = threadIdx.x; cc < C; cc += blockDim.x) {
-    float s = 0.f, sx = 0.f;
-    for (int kk = 0; kk < nk; ++kk) {
-      const size_t o = (static_cast<size_t>(n) * nk + kk) * C + cc;
-      s = __fadd_rn(s, part_g[o]);
-      sx = __fadd_rn(sx, part_gx[o]);
-    }
-    if (k == 0) {
-      sum_g[static_cast<size_t>(n) * C + cc] = s;
-      sum_gx[static_cast<size_t>(n) * C + cc] = sx;
-    }
-    mom[cc] = __fdiv_rn(s, static_cast<float>(HW));
-    mom[C + cc] = __fdiv_rn(sx, static_cast<float>(HW));
-  }
-  __syncthreads();
-  const int gi = threadIdx.x % t.G, r = threadIdx.x / t.G;
-  if (r >= t.R) return;
-  const int c = gi * kVec;
-  const Coef coef(mean, inv, scale, bias, static_cast<size_t>(n) * C + c, c);
-  const int p1 = min(HW, (k + 1) * kChunk);
-  for (int p = k * kChunk + r; p < p1; p += t.R) {
-    const size_t e = (static_cast<size_t>(n) * HW + p) * C + c;
-    float gm[kVec], xhat[kVec], d[kVec];
-    masked(coef, g + e, x + e, gm, xhat);
+    sl.pass([&](const T* const (&at)[2], int r0, int rows) {
+      if (l.on)
+        cnorm::each_row(l, at, p.C, rows, [&](const float (&gx)[2][V], int q) {
+          float gm[V], xhat[V], d[V];
+          masked<T>(k, gx, gm, xhat);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      d[j] = __fmul_rn(coef.a[j], __fsub_rn(__fsub_rn(gm[j], mom[c + j]),
-                                            __fmul_rn(xhat[j], mom[C + c + j])));
-    store8(dx + e, d);
+          for (int j = 0; j < V; ++j)
+            d[j] = __fmul_rn(k.a[j], __fsub_rn(__fsub_rn(gm[j], mg[j]), __fmul_rn(xhat[j], mgx[j])));
+          cnorm::st16(dx + (r_first + r0 + q) * p.C + cc, d);
+        });
+    });
+    __syncthreads();  // the sums are read before the next chunk's reduction writes them
   }
+  sl.finish();
 }
 
 __global__ void __launch_bounds__(kParamThreads) nr_param_kernel(
@@ -181,54 +148,60 @@ __global__ void __launch_bounds__(kParamThreads) nr_param_kernel(
   dbias[c] = db;
 }
 
+// The plan of nr_kernel<T> for [B, HW, C]; out, if given, receives it
+// (cnorm::describe) and nothing launches.
 template <typename T>
-cudaError_t launch(const void* g, const void* x, const float* mean, const float* inv,
-                   const float* scale, const float* bias, void* dx, float* dscale, float* dbias,
-                   float* work, int B, int HW, int C, cudaStream_t s) {
-  const Tile t(C);
-  const int nk = chunks(HW);
-  const size_t np = static_cast<size_t>(B) * nk * C;
-  float* part_g = work;
-  float* part_gx = part_g + np;
-  float* sum_g = part_gx + np;
-  float* sum_gx = sum_g + static_cast<size_t>(B) * C;
-  const dim3 grid(nk, B);
-  const int threads = t.G * t.R;
-  nr_partial_kernel<T><<<grid, threads, 2 * t.R * C * sizeof(float), s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale, bias, part_g, part_gx,
-      HW, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  nr_dx_kernel<T><<<grid, threads, 2 * C * sizeof(float), s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale, bias, part_g, part_gx,
-      sum_g, sum_gx, static_cast<T*>(dx), HW, C);
-  err = cudaGetLastError();
+cudaError_t launch(const NrArgs& args, float* dscale, float* dbias, int B, int HW, int C,
+                   cudaStream_t s, int* out) {
+  static bool large = false;
+  static const cudaError_t ready = cnorm::prepare(nr_kernel<T>, &large);
+  if (ready != cudaSuccess) return ready;
+  if (static_cast<long long>(HW) * C >= (1LL << 31)) return cudaErrorInvalidValue;
+  const cnorm::Plan p = cnorm::plan(2, sizeof(T), 2, 2, B, HW, C, large);
+  if (p.smem == 0) return cudaErrorInvalidValue;
+  if (out != nullptr) {
+    cnorm::describe(p, out);
+    return cudaSuccess;
+  }
+  const cudaError_t err = cnorm::launch(nr_kernel<T>, p, s, p, args);
   if (err != cudaSuccess) return err;
   nr_param_kernel<<<(C + kParamThreads - 1) / kParamThreads, kParamThreads, 0, s>>>(
-      sum_g, sum_gx, dscale, dbias, B, C);
-  return cudaGetLastError();
+      args.sum_g, args.sum_gx, dscale, dbias, B, C);
+  return cnorm::count(cudaGetLastError(), 1);
+}
+
+cudaError_t dispatch(bool bf16, const NrArgs& args, float* dscale, float* dbias, int B, int HW, int C,
+                     cudaStream_t s, int* out) {
+  return bf16 ? launch<__nv_bfloat16>(args, dscale, dbias, B, HW, C, s, out)
+              : launch<float>(args, dscale, dbias, B, HW, C, s, out);
 }
 
 }  // namespace
 
-// f32 workspace that normrelu_bwd needs: per-(sample, chunk) partials and
-// per-sample sums of gm and gm*xhat.
+// f32 workspace that normrelu_bwd needs: the per-sample sums of gm and
+// gm*xhat.
 extern "C" long long normrelu_bwd_workspace_floats(int B, int HW, int C) {
-  return 2LL * B * C * (chunks(HW) + 1);
+  (void)HW;
+  return 2LL * B * C;
 }
 
 // g, x and dx [B, HW, C] in the act dtype (bf16 if bf16, else f32); mean and
 // inv [B, C], scale and bias [C], dscale and dbias [C] f32; work holds
 // normrelu_bwd_workspace_floats floats. C is a multiple of 8 and at most
-// 2048, every pointer 16-byte aligned; the caller checks. Returns the first
-// failed launch's cudaError_t.
+// 2048, H*W*C below 2^31, every pointer 16-byte aligned; the caller checks.
+// Returns the first failed launch's cudaError_t.
 extern "C" int normrelu_bwd(int bf16, const void* g, const void* x, const float* mean,
                             const float* inv, const float* scale, const float* bias, void* dx,
                             float* dscale, float* dbias, float* work, int B, int HW, int C,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(g, x, mean, inv, scale, bias, dx, dscale, dbias, work, B, HW, C, s)
-           : launch<float>(g, x, mean, inv, scale, bias, dx, dscale, dbias, work, B, HW, C, s);
-  return static_cast<int>(err);
+  const NrArgs args{g, x, mean, inv, scale, bias, work, work + static_cast<size_t>(B) * C, dx};
+  return static_cast<int>(
+      dispatch(bf16, args, dscale, dbias, B, HW, C, static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// The plan normrelu_bwd would run for [B, HW, C]: out[4] = cluster size,
+// resident tensors (bit 0: g, bit 1: x), ring slots (0: both resident),
+// shared memory a block. Returns a cudaError_t.
+extern "C" int normrelu_bwd_plan(int bf16, int B, int HW, int C, int* out) {
+  return static_cast<int>(dispatch(bf16, NrArgs{}, nullptr, nullptr, B, HW, C, nullptr, out));
 }

@@ -15,7 +15,7 @@ version beside it:
 * ``xm_dots``: the three products on a prebuilt operand, bf16 in and out
   with f32 accumulation;
 * ``norm_stats_apply``: the norm's statistics and apply alone, on K3's own
-  kernels (``csrc/fused_chain.cu``).
+  kernel (``csrc/fused_chain.cu``, one thread-block cluster a sample).
 
 Activations are ``[B, H*W, C]`` (the TPU kernels' ``[HW, C]`` per sample).
 CPU tensors go to the plain versions; CUDA tensors launch
@@ -218,7 +218,7 @@ def xm_dots(xm, wcat, hw: int, offsets):
 
 def norm_stats_apply(x, scale, bias, eps: float = 1e-5):
     """``relu(norm(x))`` of ``x`` ``[B, N, C]`` (f32 or bf16) from its own
-    statistics, in x's dtype, on K3's statistics and apply kernels."""
+    statistics, in x's dtype, on K3's statistics-and-apply kernel."""
     global STATS_LAUNCHES
     if x.dim() != 3 or scale.shape != (x.shape[2],) or bias.shape != (x.shape[2],):
         raise ValueError(f"x [B, N, C] {tuple(x.shape)}, scale and bias [C]")

@@ -9,7 +9,8 @@ variance, eps inside the rsqrt) in f32; forward only.
 
 ``csrc/fused_chain.cu`` holds the kernels (built by ``ops/cuda_lib.py``);
 its header says how the TPU design, a whole sample resident in VMEM, became
-statistics through device memory and an implicit-GEMM conv on Hopper.
+statistics on one thread-block cluster a sample (``csrc/cluster_norm.cuh``;
+``norm_plan`` says how a shape runs) and an implicit-GEMM conv on Hopper.
 
 * CPU tensors go to ``fused_chain_plain``, the plain PyTorch version;
 * CUDA tensors launch the kernels, one ``fused_unit`` call per unit, or
@@ -34,6 +35,26 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (bf16, x, w, bias, pro_scale, pro_bias, epi_scale, epi_bias, skip, y, tmp, coef_a,
 #  coef_b, B, H, W, C, Co, k, eps, stream)
 _UNIT_ARGTYPES = [_I] + [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P]
+# (bf16, apply, B, HW, C, out[4])
+_PLAN_ARGTYPES = [_I] * 5 + [_P]
+
+
+def norm_launches() -> tuple[int, int]:
+    """Kernels that K3's and K5's launchers have launched on the card in
+    this process, K4's calls of them included: (the norm kernels, the rest:
+    convs and K5's parameter sums)."""
+    fn = cuda_lib.function("norm_launches", [_I], ctypes.c_longlong)
+    return int(fn(0)), int(fn(1))
+
+
+def norm_plan(dtype, bsz: int, hw: int, c: int, apply: bool = True) -> dict:
+    """How K3's norm kernel runs ``[bsz, hw, c]`` of ``dtype`` on the card:
+    the statistics alone (``apply`` False: a prologue, K4) or with the apply
+    (an epilogue, ``norm_stats_apply``). Cluster size (blocks a sample),
+    ``path`` resident or streamed, ring slots, shared memory a block."""
+    fn = cuda_lib.function("norm_plan", _PLAN_ARGTYPES)
+    return cuda_lib.cluster_plan(fn, "norm_plan", int(dtype == torch.bfloat16), int(apply), bsz,
+                                 hw, c)
 
 
 def _norm_affine_relu(y32, scale, bias, eps):

@@ -110,6 +110,17 @@ def on_cpu(name: str, tensors) -> bool:
     return False
 
 
+def cluster_plan(fn, name: str, *args) -> dict:
+    """The plan a cluster-per-sample norm kernel (``csrc/cluster_norm.cuh``)
+    would run: ``fn(*args, out)`` fills cluster size, resident tensors (a
+    bit each, the last tensor x), ring slots and shared memory a block."""
+    out = (ctypes.c_int * 4)()
+    check(fn(*args, out), name)
+    cs, resident, ring, smem = out
+    path = "resident" if ring == 0 else ("mixed" if resident else "streamed")
+    return {"cluster": cs, "path": path, "ring": ring, "smem": smem}
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:

@@ -9,9 +9,11 @@ is XLA, not Pallas). The backward, ``normrelu_bwd``:
 * CUDA tensors launch ``csrc/normrelu_bwd.cu`` (built by
   ``ops/cuda_lib.py``) or raise; there is no fallback.
 
-``make_norm_relu_pallas``'s ``bt`` (samples per VMEM grid step) has no counterpart:
-every launch spans the batch. ``LAUNCHES`` counts ``normrelu_bwd`` calls
-that launched the kernel.
+The kernel runs one thread-block cluster per sample, which holds the
+sample's g and x in shared memory where it can (``plan`` says how a shape
+runs). ``make_norm_relu_pallas``'s ``bt`` (samples per VMEM grid step) has
+no counterpart: every launch spans the batch. ``LAUNCHES`` counts
+``normrelu_bwd`` calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ _ARGTYPES = {
     "normrelu_bwd_workspace_floats": ([_I] * 3, ctypes.c_longlong),
     # (bf16, g, x, mean, inv, scale, bias, dx, dscale, dbias, work, B, HW, C, stream)
     "normrelu_bwd": ([_I] + [_P] * 10 + [_I] * 3 + [_P], ctypes.c_int),
+    # (bf16, B, HW, C, out[4])
+    "normrelu_bwd_plan": ([_I] * 4 + [_P], ctypes.c_int),
 }
 
 
@@ -78,6 +82,15 @@ def normrelu_bwd(g, x, mean, inv, scale, bias):
     cuda_lib.check(rc, "normrelu_bwd")
     LAUNCHES += 1
     return dx, dparams[0], dparams[1]
+
+
+def plan(dtype, bsz: int, hw: int, c: int) -> dict:
+    """How ``normrelu_bwd`` runs ``[bsz, hw, c]`` of ``dtype`` on the card:
+    the cluster size (blocks a sample), which of g and x stay resident in
+    shared memory (``path``: resident, mixed = x resident and g streamed,
+    or streamed), the ring's slots and the shared memory a block."""
+    return cuda_lib.cluster_plan(_fn("normrelu_bwd_plan"), "normrelu_bwd_plan",
+                                 int(dtype == torch.bfloat16), bsz, hw, c)
 
 
 def make_norm_relu_cuda():

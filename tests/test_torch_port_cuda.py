@@ -386,11 +386,12 @@ def _hourglass_state(features, level, seed):
 # per sample (the tail): level 0 at 4x4 and level 1 at 16x16 whole, level 3
 # at 32x32 on K3's kernels above the tail (6 a ResBlock, a pool and an
 # upsample-add, then the tail), level 2 at 16x16 whole with 133 samples
-# (more blocks than the card's 132 SMs); f32 runs every level on K3's
-# kernels (14 a level, 20 at level 0)
+# (more blocks than the card's 132 SMs), and the full-width level 4 at
+# 64x64 (the statistics on clusters of 16, 8, 4 and 2 blocks, 29 kernels);
+# f32 runs every level on K3's kernels (14 a level, 20 at level 0)
 HOURGLASS_CASES = [((2, 16, 16, 32), 1, 1, 34), ((3, 16, 16, 128), 2, 1, 48),
                    ((5, 4, 4, 128), 0, 1, 20), ((3, 32, 32, 128), 3, 15, 62),
-                   ((133, 16, 16, 128), 2, 1, 48)]
+                   ((133, 16, 16, 128), 2, 1, 48), ((2, 64, 64, 128), 4, 29, 76)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -685,3 +686,158 @@ def test_normrelu_and_ablate_wrappers_reject_what_the_kernels_do_not_take(device
         tap.copy(torch.zeros(3, device=device, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         tap.norm_stats_apply(flat, p.cpu(), p)
+
+
+# --------------------------------------------------------------------------- #
+# The norm kernels on one thread-block cluster a sample: K3's statistics
+# and apply (csrc/fused_chain.cu norm_kernel) and K5 (csrc/normrelu_bwd.cu)
+# --------------------------------------------------------------------------- #
+
+# [B, HW, C], dtype, and the plan the launcher picks for K3's statistics
+# and apply: (blocks a sample, path). Samples of at most 64 KB a block stay
+# resident with three blocks an SM (clusters of 1 to 16), up to 128 KB a
+# block with one; larger ones stream
+NORM_CASES = {
+    "c1": ((4, 256, 64), "bfloat16", (1, "resident")),
+    "c2": ((2, 256, 256), "bfloat16", (2, "resident")),
+    "c4": ((2, 1024, 128), "bfloat16", (4, "resident")),
+    "c8": ((2, 4096, 64), "bfloat16", (8, "resident")),
+    "c16": ((2, 4096, 128), "bfloat16", (16, "resident")),
+    "c16_128k": ((2, 4096, 128), "float32", (16, "resident")),
+    "streamed": ((2, 16384, 64), "float32", (16, "streamed")),
+    # 1001 pixels: slices of 251, the last one 248, pieces of 64 and a rest
+    "ragged": ((3, 1001, 128), "bfloat16", (4, "resident")),
+    "ch8": ((3, 4096, 8), "bfloat16", (1, "resident")),
+    "ch256": ((2, 1024, 256), "bfloat16", (8, "resident")),
+    # more channels than a block's 16-byte vectors: two chunks of 1024
+    "ch2048": ((2, 16, 2048), "float32", (2, "resident")),
+}
+
+
+def _norm_inputs(device, shape, dt, seed):
+    """x [B, HW, C] around 2 with channel 0 constant (a variance of 0), and
+    the norm's scale and bias."""
+    rng = np.random.RandomState(seed)
+    b, hw, c = shape
+    x = rng.randn(b, hw, c) + 2.0
+    x[..., 0] = 0.75
+    put = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    return put(x).to(dt), put(1.0 + 0.1 * rng.randn(c)), put(0.1 * rng.randn(c))
+
+
+@pytest.mark.parametrize("case", list(NORM_CASES))
+def test_norm_stats_apply_on_a_cluster_matches_plain_version(device, case):
+    """K3's statistics and apply on each plan the launcher picks (clusters
+    of 1 to 16 blocks, resident and streamed, a ragged last slice, 8 to
+    2048 channels): bf16 within 2 ulps of the scale, f32 within 1e-4 of
+    it, a constant channel included; two calls bit-identical."""
+    shape, dtype, (cluster, path) = NORM_CASES[case]
+    dt = getattr(torch, dtype)
+    plan = tfused.norm_plan(dt, *shape)
+    assert (plan["cluster"], plan["path"]) == (cluster, path), plan
+    x, s, b = _norm_inputs(device, shape, dt, 70)
+    before = tfused.norm_launches()
+    got = tap.norm_stats_apply(x, s, b)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(tfused.norm_launches(), before)) == (1, 0)
+    again = tap.norm_stats_apply(x, s, b)
+    torch.cuda.synchronize()
+    want = tap.norm_stats_apply_plain(x, s, b)
+    assert torch.equal(got, again)
+    assert torch.isfinite(got.float()).all()
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    else:
+        assert _bf16_ulps(got, want) <= 2.0
+
+
+def test_norm_stats_apply_f32_far_from_zero_matches_float64(device):
+    """A channel of mean 1e3 and standard deviation 1 in f32, against the
+    norm computed in float64: within 1e-4 of the output's scale (the
+    two-pass variance does not cancel)."""
+    rng = np.random.RandomState(71)
+    x64 = rng.randn(2, 4096, 128)
+    x64[..., 1] += 1e3
+    x = torch.from_numpy(x64.astype(np.float32)).to(device)
+    s = torch.ones(128, device=device)
+    b = torch.zeros(128, device=device)
+    got = tap.norm_stats_apply(x, s, b).double().cpu()
+    xd = x.double().cpu()
+    mean = xd.mean(dim=1, keepdim=True)
+    var = ((xd - mean) ** 2).mean(dim=1, keepdim=True)
+    want = torch.clamp_min((xd - mean) / torch.sqrt(var + 1e-5), 0.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_chain_unit_on_clusters_matches_plain_version(device, dtype):
+    """A K3 unit whose prologue statistics and epilogue (statistics, apply
+    and skip, one launch) run on clusters of 16 blocks: 1x1 128 -> 128 at
+    [2, 64, 64, 128], within K3's bounds of its plain version."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(72)
+    x = torch.from_numpy((1.0 + rng.randn(2, 64, 64, 128)).astype(np.float32)).to(device, dt)
+    skip = torch.from_numpy(rng.randn(2, 64, 64, 128).astype(np.float32)).to(device, dt)
+    units = _units([(1, 128, 128, True, True)], 73, device)
+    assert tfused.norm_plan(dt, 2, 64 * 64, 128)["cluster"] == 16
+    before = tfused.norm_launches()
+    got = tfused.fused_chain(x, units, skip=skip)
+    torch.cuda.synchronize()
+    # the prologue's statistics, the conv, the epilogue's statistics and apply
+    assert tuple(a - b for a, b in zip(tfused.norm_launches(), before)) == (2, 1)
+    want = tfused.fused_chain_plain(x, units, skip=skip)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    else:
+        assert _bf16_ulps(got, want) <= 2.0
+
+
+# (B, H, W, C), dtype and K5's plan: (blocks a sample, path); mixed: x
+# resident beside a ring of g
+NORMRELU_CASES = {
+    "c1": ((2, 16, 16, 64), "bfloat16", (1, "resident")),
+    "c8": ((2, 32, 32, 128), "bfloat16", (8, "resident")),
+    "mixed8": ((2, 64, 64, 128), "bfloat16", (8, "mixed")),
+    "mixed16": ((2, 64, 64, 128), "float32", (16, "mixed")),
+    "streamed": ((2, 128, 128, 64), "float32", (16, "streamed")),
+    "ragged": ((2, 33, 31, 64), "bfloat16", (4, "resident")),
+    "ch8": ((2, 64, 64, 8), "bfloat16", (2, "resident")),
+    "ch256": ((2, 32, 32, 256), "bfloat16", (16, "resident")),
+    "ch2048": ((2, 4, 4, 2048), "bfloat16", (2, "resident")),
+    "ch2048_f32": ((2, 4, 4, 2048), "float32", (4, "resident")),
+}
+
+
+@pytest.mark.parametrize("case", list(NORMRELU_CASES))
+def test_normrelu_backward_on_a_cluster_matches_plain_version(device, case):
+    """K5 on each plan the launcher picks: dx within 1 bf16 ulp of its
+    scale (f32: 1e-5 of it), dscale and dbias rtol 1e-4 atol 1e-2, channel
+    0 at scale = bias = 0 exactly 0; two calls bit-identical."""
+    shape, dtype, (cluster, path) = NORMRELU_CASES[case]
+    dt = getattr(torch, dtype)
+    b, h, w, c = shape
+    plan = tcn.plan(dt, b, h * w, c)
+    assert (plan["cluster"], plan["path"]) == (cluster, path), plan
+    rng = np.random.RandomState(74)
+    put = lambda a, d=torch.float32: torch.from_numpy(a.astype(np.float32)).to(device, d)  # noqa: E731
+    x, g = put(rng.randn(*shape) + 0.3, dt), put(rng.randn(*shape), dt)
+    scale, bias = put(1.0 + 0.2 * rng.randn(c)), put(0.1 * rng.randn(c))
+    scale[0] = bias[0] = 0.0
+    mean, inv = tnr.norm_relu_stats(x)
+    before = tfused.norm_launches()
+    got = tcn.normrelu_bwd(g, x, mean, inv, scale, bias)
+    torch.cuda.synchronize()
+    # two kernels a call: the cluster kernel and the per-channel sums
+    assert tuple(a - b for a, b in zip(tfused.norm_launches(), before)) == (1, 1)
+    again = tcn.normrelu_bwd(g, x, mean, inv, scale, bias)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = tnr.normrelu_bwd_plain(g, x, mean, inv, scale, bias)
+    dx, ds, db = got
+    assert float(dx[..., 0].abs().max()) == 0.0 and float(ds[0]) == 0.0 and float(db[0]) == 0.0
+    if dt == torch.bfloat16:
+        assert _bf16_ulps(dx, want[0]) <= 1.0
+    else:
+        torch.testing.assert_close(dx, want[0], rtol=0, atol=1e-5 * float(want[0].abs().max()))
+    torch.testing.assert_close(ds, want[1], rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(db, want[2], rtol=1e-4, atol=1e-2)
