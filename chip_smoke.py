@@ -11,12 +11,19 @@ backward; K3, the fused conv + instance-norm unit; K4, the whole
 hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 
 1. K1, the forward kernel, at the serving and training shapes
-   ([32|128|256, 14, 64*64], f32 and bf16-in/bf16-heatmap), against its
-   plain PyTorch version, timed with CUDA events;
+   ([32|128|256, 14, 64*64]: the on-chip plan) in all four dtype forms and
+   at [8, 14, 128*128] (the streamed plan), each with one all-zero mask
+   row, against its plain PyTorch version, two calls bit-identical, the
+   plan of each shape asserted; the main-path cases timed with CUDA events;
 2. K2, the backward kernel, through the decoder's autograd.Function at
-   [32|128, 14, 64*64] f32 with one all-zero mask row, against autograd of
-   the plain decoder: dx, ddm, dlabel and dw, and the backward alone and
-   forward + backward timed for both;
+   [32|128, 14, 64*64] and [4, 14, 128*128] f32 with one all-zero mask row,
+   with the label image requiring grad (dlabel: two kernels) and not (one
+   kernel, as in training), against autograd of the plain decoder: dx, ddm,
+   dlabel and dw, two calls bit-identical, dlabel equal to ddm summed over
+   the joints in order; the backward alone and forward + backward timed
+   for both; then K1 at the train, serve and engine shapes and K2 in both
+   forms by device time (a CUDA graph of calls) beside the wrapper call's
+   time, each with its bound and plan (phase_decoder_device);
 3. the serving path: the full-width default model (NYU: 14 joints, 2 stages,
    128 features, level 4, instance_anchored norm, bf16, batch 32) on
    weights made from a seed answers four requests of synthetic 480x640
@@ -67,13 +74,17 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    side by side.
 
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
-K6's xm_dots (the same loop), in K4's tail kernel or in the norm kernels
-(K3's norm_kernel, K5's nr_kernel).
+K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
+(K3's norm_kernel, K5's nr_kernel) or in the decoder's (K1, K2 and the
+dlabel kernel).
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
 quotes; then K4's tail kernel's device time a ResBlock in one wave of
 blocks (_tail_per_block), and the fused engine's forward at batch 64 by
-kernel, with K4's share (_engine_by_kernel).
+kernel, with K4's share (_engine_by_kernel). With --decoder it builds the
+kernels and runs phase_decoder_device alone; with --decoder DIR it runs it
+on the package of the tree at DIR (a parent from `git archive`) and on this
+one in turns, DIR, this, this, DIR, each in its own process.
 
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
@@ -186,44 +197,71 @@ def _interleaved_ms(fns, runs=7, iters=20):
     return out
 
 
+def _decoder_rows(device, b, hw, gen, dtype=torch.float32):
+    """Decoder inputs [b, J, hw] (label and mask [b, 1, hw]) in dtype; sample
+    0's mask is all zero (den = 1e-14: must give finite zeros)."""
+    x = 3 * torch.randn(b, J, hw, generator=gen, device=device)
+    dm = torch.randn(b, J, hw, generator=gen, device=device)
+    label = torch.randn(b, 1, hw, generator=gen, device=device)
+    mask = (torch.rand(b, 1, hw, generator=gen, device=device) > 0.4).float()
+    mask[0] = 0.0
+    w = torch.rand(J, generator=gen, device=device) + 0.5
+    return (*(t.to(dtype) for t in (x, dm, label, mask)), w)
+
+
+# K1 against its plain version: (batch, map side, maps in, heatmaps out,
+# timed). 64x64 is the main path's map (the on-chip plan); 128x128 a row too
+# long to hold on chip (the streamed plan); all four dtype forms on each
+KERNEL_CASES = (
+    *((b, H, dt, dt, True) for b in (32, TRAIN_BATCH, 256) for dt in (torch.float32, torch.bfloat16)),
+    (32, H, torch.float32, torch.bfloat16, False), (32, H, torch.bfloat16, torch.float32, False),
+    *((8, 2 * H, dt, ht, False) for dt in (torch.float32, torch.bfloat16)
+      for ht in (torch.float32, torch.bfloat16)),
+)
+
+
 def phase_kernel(cs, plain, device):
-    """Kernel vs plain version on the card; returns the main path's case."""
+    """Kernel vs plain version on the card, on both plans and in all four
+    dtype forms, two calls bit-identical; returns the timed cases (call
+    time by CUDA events)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     cases = {}
-    for b in (32, 128, 256):
-        for dtype in (torch.float32, torch.bfloat16):
-            hw = H * W
-            x = (3 * torch.randn(b, J, hw, generator=gen, device=device)).to(dtype)
-            dm = torch.randn(b, J, hw, generator=gen, device=device).to(dtype)
-            label = torch.randn(b, 1, hw, generator=gen, device=device).to(dtype)
-            mask = (torch.rand(b, 1, hw, generator=gen, device=device) > 0.4).to(dtype)
-            w = torch.rand(J, generator=gen, device=device) + 0.5
+    for b, side, dtype, hm_dtype, timed in KERNEL_CASES:
+        hw = side * side
+        x, dm, label, mask, w = _decoder_rows(device, b, hw, gen, dtype)
+        plan = cs.plan(hw)["plan"]
+        assert plan == ("on_chip" if side <= H else "streamed"), (side, plan)
 
-            def kernel():
-                return cs.decode_flat(x, dm, label, mask, w, H, W, hm_dtype=dtype)
+        def kernel():
+            return cs.decode_flat(x, dm, label, mask, w, side, side, hm_dtype=hm_dtype)
 
-            def reference():
-                hm, uvd = plain(x, dm, label, mask, w, H, W)
-                return hm.to(dtype), uvd
+        def reference():
+            hm, uvd = plain(x, dm, label, mask, w, side, side)
+            return hm.to(hm_dtype), uvd
 
-            hm_k, uvd_k = kernel()
-            hm_p, uvd_p = reference()
-            torch.cuda.synchronize()
-            if dtype == torch.float32:
-                # both compute in f32; only the summation order differs
-                torch.testing.assert_close(hm_k, hm_p, rtol=1e-5, atol=1e-8)
-            else:
-                # p >= 0, so bf16 bit patterns order like the values: 1 ulp = 1 step
-                ulps = (hm_k.view(torch.int16).int() - hm_p.view(torch.int16).int()).abs().max()
-                assert int(ulps) <= 1, f"bf16 heatmaps differ by {int(ulps)} ulp"
-            torch.testing.assert_close(uvd_k, uvd_p, rtol=1e-5, atol=1e-6)
-            err = max(float((hm_k.float() - hm_p.float()).abs().max()),
-                      float((uvd_k - uvd_p).abs().max()))
+        hm_k, uvd_k = kernel()
+        again = kernel()
+        hm_p, uvd_p = reference()
+        torch.cuda.synchronize()
+        assert torch.equal(hm_k, again[0]) and torch.equal(uvd_k, again[1]), "two calls differ"
+        if hm_dtype == torch.float32:
+            # both compute in f32; only the summation order differs
+            torch.testing.assert_close(hm_k, hm_p, rtol=1e-5, atol=1e-8)
+        else:
+            # p >= 0, so bf16 bit patterns order like the values: 1 ulp = 1 step
+            ulps = (hm_k.view(torch.int16).int() - hm_p.view(torch.int16).int()).abs().max()
+            assert int(ulps) <= 1, f"bf16 heatmaps differ by {int(ulps)} ulp"
+        torch.testing.assert_close(uvd_k, uvd_p, rtol=1e-5, atol=1e-6)
+        err = max(float((hm_k.float() - hm_p.float()).abs().max()),
+                  float((uvd_k - uvd_p).abs().max()))
+        form = f"{_DT[dtype]}->{_DT[hm_dtype]}"
+        line = f"kernel softargmax_fwd [{b},{J},{hw}] {form} plan {plan}: max_abs_err={err:.3e}"
+        if timed:
             ms, plain_ms = _median_ms(kernel), _median_ms(reference)
-            name = "f32" if dtype == torch.float32 else "bf16"
-            print(f"kernel softargmax_fwd [{b},{J},{hw}] {name}: max_abs_err={err:.3e} "
-                  f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f}")
-            cases[(b, name)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            line += f" call_ms={ms:.5f} plain_ms={plain_ms:.5f}"
+            cases[(b, _DT[dtype])] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(line)
+        del x, dm, label, mask, hm_k, hm_p, again
     return cases
 
 
@@ -344,66 +382,162 @@ def phase_reference(device):
     assert gap <= 2e-2, f"card and CPU disagree by {gap:.3e}"
 
 
-def _rows(device, b, gen):
-    hw = H * W
-    x = 3 * torch.randn(b, J, hw, generator=gen, device=device)
-    dm = torch.randn(b, J, hw, generator=gen, device=device)
-    label = torch.randn(b, 1, hw, generator=gen, device=device)
-    mask = (torch.rand(b, 1, hw, generator=gen, device=device) > 0.4).float()
-    mask[0] = 0.0  # den = 1e-14: must give finite zeros
-    w = torch.rand(J, generator=gen, device=device) + 0.5
-    return x, dm, label, mask, w
-
-
 def phase_backward(cs, plain, device):
-    """K2 through the autograd.Function vs autograd of the plain decoder."""
+    """K2 through the decoder's autograd.Function vs autograd of the plain
+    decoder, on both plans, with the label image requiring grad (two
+    kernels: dlabel asked) and not (one kernel, as on the training path);
+    two calls bit-identical, dlabel equal to ddm summed over j in order."""
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     cases = {}
-    for b in (32, TRAIN_BATCH):
-        x, dm, label, mask, w = _rows(device, b, gen)
-        g_hm = torch.randn(b, J, H * W, generator=gen, device=device) * 1e-3
+    for b, side in ((32, H), (TRAIN_BATCH, H), (4, 2 * H)):
+        hw = side * side
+        x, dm, label, mask, w = _decoder_rows(device, b, hw, gen)
+        g_hm = torch.randn(b, J, hw, generator=gen, device=device) * 1e-3
         g_uvd = torch.randn(b, J, 3, generator=gen, device=device)
+        plan = cs.plan(hw)["plan"]
+        assert plan == ("on_chip" if side <= H else "streamed"), (side, plan)
 
-        def grads(decode):
-            leaves = [t.clone().requires_grad_(True) for t in (x, dm, label, w)]
-            hm, uvd = decode(leaves[0], leaves[1], leaves[2], mask, leaves[3], H, W)
+        def grads(decode, label_grad):
+            leaves = [t.clone().requires_grad_(i != 2 or label_grad)
+                      for i, t in enumerate((x, dm, label, w))]
+            hm, uvd = decode(leaves[0], leaves[1], leaves[2], mask, leaves[3], side, side)
             torch.autograd.backward((hm, uvd), (g_hm, g_uvd))
             return [t.grad for t in leaves]
 
-        got = grads(cs.decode_flat)
-        want = grads(plain)
-        torch.cuda.synchronize()
         err = 0.0
-        for name, g, r in zip(("dx", "ddm", "dlabel", "dw"), got, want):
-            assert torch.isfinite(g).all(), f"non-finite {name}"
-            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6, msg=name)
-            err = max(err, float((g - r).abs().max()))
-        assert float(got[1][0].abs().max()) == 0.0 and float(got[2][0].abs().max()) == 0.0
+        for label_grad in (True, False):
+            before = (cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
+            got = grads(cs.decode_flat, label_grad)
+            torch.cuda.synchronize()
+            kernels = cs.BWD_KERNEL_LAUNCHES - before[1]
+            assert (cs.BWD_LAUNCHES - before[0], kernels) == (1, 2 if label_grad else 1), kernels
+            again = grads(cs.decode_flat, label_grad)
+            want = grads(plain, label_grad)
+            for name, g, a, r in zip(("dx", "ddm", "dlabel", "dw"), got, again, want):
+                if g is None:
+                    assert name == "dlabel" and not label_grad and a is None
+                    continue
+                assert torch.isfinite(g).all(), f"non-finite {name}"
+                assert torch.equal(g, a), f"two calls differ in {name}"
+                torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6, msg=name)
+                err = max(err, float((g - r).abs().max()))
+            assert float(got[1][0].abs().max()) == 0.0
+            if label_grad:
+                assert float(got[2][0].abs().max()) == 0.0
+                fixed = torch.zeros_like(got[2][:, 0])
+                for j in range(J):  # the dlabel kernel's order
+                    fixed = fixed + got[1][:, j]
+                assert torch.equal(got[2][:, 0], fixed), "dlabel is not ddm summed in j order"
+        line = (f"kernel softargmax_bwd [{b},{J},{hw}] f32 plan {plan}, with and without "
+                f"dlabel (2 and 1 kernels): max_abs_err={err:.3e}")
+        if side == H:
+            # the backward alone: K2 (plus the batch sum of dw) vs autograd of the plain graph
+            leaves = [t.clone().requires_grad_(True) for t in (x, dm, label, w)]
+            out = plain(leaves[0], leaves[1], leaves[2], mask, leaves[3], H, W)
 
-        # the backward alone: K2 (plus the batch sum of dw) vs autograd of the plain graph
-        leaves = [t.clone().requires_grad_(True) for t in (x, dm, label, w)]
-        out = plain(leaves[0], leaves[1], leaves[2], mask, leaves[3], H, W)
+            def k_bwd():
+                return cs.decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, H, W)
 
-        def k_bwd():
-            return cs.decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, H, W)
+            def p_bwd():
+                return torch.autograd.grad(out, leaves, (g_hm, g_uvd), retain_graph=True)
 
-        def p_bwd():
-            return torch.autograd.grad(out, leaves, (g_hm, g_uvd), retain_graph=True)
+            def fwd_bwd(decode):
+                def run():
+                    lv = [t.detach().requires_grad_(True) for t in (x, dm, label, w)]
+                    hm, uvd = decode(lv[0], lv[1], lv[2], mask, lv[3], H, W)
+                    return torch.autograd.grad((hm, uvd), lv, (g_hm, g_uvd))
+                return run
 
-        def fwd_bwd(decode):
-            def run():
-                lv = [t.detach().requires_grad_(True) for t in (x, dm, label, w)]
-                hm, uvd = decode(lv[0], lv[1], lv[2], mask, lv[3], H, W)
-                return torch.autograd.grad((hm, uvd), lv, (g_hm, g_uvd))
-            return run
-
-        ms, plain_ms = _median_ms(k_bwd), _median_ms(p_bwd)
-        fb_ms, fb_plain_ms = _median_ms(fwd_bwd(cs.decode_flat)), _median_ms(fwd_bwd(plain))
-        print(f"kernel softargmax_bwd [{b},{J},{H * W}] f32: max_abs_err={err:.3e} "
-              f"bwd kernel_ms={ms:.5f} plain_ms={plain_ms:.5f}; fwd+bwd kernel_ms={fb_ms:.5f} "
-              f"plain_ms={fb_plain_ms:.5f}")
-        cases[b] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            ms, plain_ms = _median_ms(k_bwd), _median_ms(p_bwd)
+            fb_ms, fb_plain_ms = (_median_ms(fwd_bwd(cs.decode_flat)),
+                                  _median_ms(fwd_bwd(plain)))
+            line += (f" bwd call_ms={ms:.5f} plain_ms={plain_ms:.5f}; fwd+bwd call_ms={fb_ms:.5f} "
+                     f"plain_ms={fb_plain_ms:.5f}")
+            cases[b] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            del out, leaves
+        print(line)
+        del x, dm, label, mask, g_hm
     return cases
+
+
+# the decoder's main-path shapes [b, J, H*W]: (path, batch, map dtype, heatmap dtype)
+DECODER_SHAPES = (("train", TRAIN_BATCH, torch.float32, torch.float32),
+                  ("serve", 32, torch.bfloat16, torch.bfloat16),
+                  ("engines", ENGINE_BATCH, torch.bfloat16, torch.bfloat16))
+
+
+def phase_decoder_device(device):
+    """K1 at each of DECODER_SHAPES and K2 at the train shape, with and
+    without dlabel: a call's device time (a CUDA graph of calls,
+    `_graph_us`) beside the wrapper call's CUDA-event time (back to back,
+    host work included), each with its bound and the plan it ran. It
+    imports the port lazily, so that a parent tree's package can be
+    measured by it (`--decoder DIR`); a form or plan query that tree lacks
+    reads None."""
+    import inspect
+
+    from pixelwiseregression_tpu_torch.ops import cuda_softargmax as cs
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    plan = getattr(cs, "plan", None)
+    out = {}
+
+    def row(fn, bound):
+        dev_ms, call_ms = _graph_us(fn) / 1e3, _median_ms(fn)
+        return {"device_ms": dev_ms, "call_ms": call_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "bound_share": bound[0] / dev_ms}
+
+    for path, b, dt, ht in DECODER_SHAPES:
+        x, dm, label, mask, w = _decoder_rows(device, b, H * W, gen, dt)
+        out[f"fwd {path}"] = {
+            **row(lambda: cs.decode_flat(x, dm, label, mask, w, H, W, hm_dtype=ht),
+                  _decoder_bound("fwd", b, dt.itemsize, ht.itemsize)),
+            "shape": [b, J, H * W], "dtype": f"{_DT[dt]} -> {_DT[ht]}",
+            "plan": plan(H * W)["plan"] if plan else None}
+        del x, dm, label, mask
+    x, dm, label, mask, w = _decoder_rows(device, TRAIN_BATCH, H * W, gen)
+    g_hm = torch.randn(x.shape, generator=gen, device=device) * 1e-3
+    g_uvd = torch.randn(TRAIN_BATCH, J, 3, generator=gen, device=device)
+    takes_dlabel = "dlabel" in inspect.signature(cs.decode_flat_backward).parameters
+    for form, dlabel in (("with dlabel", True), ("without dlabel", False)):
+        if not dlabel and not takes_dlabel:
+            out[f"bwd train {form}"] = None
+            continue
+        kw = {"dlabel": dlabel} if takes_dlabel else {}
+        out[f"bwd train {form}"] = {
+            **row(lambda: cs.decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, H, W, **kw),
+                  _decoder_bound("bwd", TRAIN_BATCH, dlabel=dlabel)),
+            "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32",
+            "plan": plan(H * W)["plan"] if plan else None}
+    for key, r in out.items():
+        print(f"decoder device {key}: " + ("not in this tree" if r is None else
+              f"{r['shape']} {r['dtype']} plan {r['plan']}: device_ms={r['device_ms']:.5f} "
+              f"call_ms={r['call_ms']:.5f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}), "
+              f"{r['bound_share']:.3f} of the bound"))
+    del x, dm, label, mask, g_hm
+    _free()
+    return out
+
+
+def decoder_ab(parent):
+    """`--decoder [DIR]`: phase_decoder_device on this tree's package, or,
+    given the root of another tree (a parent from `git archive`), on that
+    tree's package and this one's in turns (DIR, this, this, DIR), each in
+    its own process (the two packages share a name)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = [here] if parent is None else [parent, here, here, parent]
+    code = ("import importlib.util, json, sys, torch\n"
+            "sys.path.insert(0, sys.argv[1])\n"
+            "spec = importlib.util.spec_from_file_location('smoke', sys.argv[2])\n"
+            "smoke = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(smoke)\n"
+            "lib, _ = __import__('pixelwiseregression_tpu_torch.ops.cuda_lib',\n"
+            "                    fromlist=['build']).build()\n"
+            "print('tree', sys.argv[1], 'library', lib.name, flush=True)\n"
+            "smoke.phase_decoder_device(torch.device('cuda:0'))\n")
+    for tree in trees:
+        subprocess.run([sys.executable, "-c", code, os.path.abspath(tree),
+                        os.path.abspath(__file__)], cwd=tree, check=True, timeout=600)
 
 
 def _train_setup(device, decoder, dtype, state_dict, batch_size):
@@ -460,7 +594,8 @@ def _step_parts(step, state, batch, gen):
 
 
 def phase_train(cs, device):
-    """The training path at full width; returns the (K1, K2) launches of its main run."""
+    """The training path at full width; returns the (K1, K2, K2's kernels)
+    launches of its main run."""
     from pixelwiseregression_tpu_torch.data.preprocess import draw_augmentation
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
@@ -478,7 +613,7 @@ def phase_train(cs, device):
 
     state = _train_setup(device, "cuda", torch.bfloat16, state0, TRAIN_BATCH)
     torch.cuda.synchronize()
-    cs.LAUNCHES = cs.BWD_LAUNCHES = 0
+    cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
     losses, t = [], time.perf_counter()
     for i in range(TRAIN_STEPS):
         before = (cs.LAUNCHES, cs.BWD_LAUNCHES)
@@ -490,12 +625,13 @@ def phase_train(cs, device):
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = (cs.LAUNCHES, cs.BWD_LAUNCHES)
-    assert launches == (STAGES * TRAIN_STEPS, STAGES * TRAIN_STEPS), launches
+    launches = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
+    # label_img needs no gradient: K2 is one kernel a call (no dlabel)
+    assert launches == (STAGES * TRAIN_STEPS,) * 3, launches
     assert all(np.isfinite(losses)), losses
     print(f"train NYU stages={STAGES} bf16 batch={TRAIN_BATCH} augmented: {TRAIN_STEPS} steps "
           f"in {seconds:.2f} s (first step included), launches K1={launches[0]} "
-          f"K2={launches[1]}, losses {[round(v, 5) for v in losses]}")
+          f"K2={launches[1]} in {launches[2]} kernels, losses {[round(v, 5) for v in losses]}")
 
     plain = _train_setup(device, "torch", torch.bfloat16, state0, TRAIN_BATCH)
     m = step(plain, batch, draws=draws0)
@@ -553,9 +689,10 @@ def phase_train_f32(cs, device):
     step = make_train_step(_train_cfg(), LossConfig(), augment=True)
     batch = _raw_batch(device, 32, SEED + 30)
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
-    before = (cs.LAUNCHES, cs.BWD_LAUNCHES)
+    before = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
     losses = [float(step(state, batch, generator=gen)["loss"]) for _ in range(3)]
-    assert (cs.LAUNCHES - before[0], cs.BWD_LAUNCHES - before[1]) == (3 * STAGES, 3 * STAGES)
+    assert (cs.LAUNCHES - before[0], cs.BWD_LAUNCHES - before[1],
+            cs.BWD_KERNEL_LAUNCHES - before[2]) == (3 * STAGES,) * 3
     assert all(np.isfinite(losses)), losses
     print(f"train NYU stages={STAGES} f32 batch=32: 3 steps, losses "
           f"{[round(v, 5) for v in losses]}")
@@ -698,13 +835,19 @@ def _bound(flops, nbytes, kind):
     return seconds * 1e3, by
 
 
-def _decoder_bounds(b):
-    """K1 and K2 at [b, J, H*W] f32: each map element read or written once;
-    ~16 f32 operations per element forward (three passes), ~30 backward."""
+_DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _decoder_bound(kernel, b, map_bytes=4, hm_bytes=4, dlabel=True):
+    """K1 ("fwd") or K2 ("bwd") at [b, J, H*W]: each input read once and
+    each output written once (K1: x and dm, the label and mask rows, hm, uvd;
+    K2: x, dm, g_hm, the label and mask rows, dx, ddm, dlabel if asked,
+    g_uvd and dw), ~16 f32 operations per element forward, ~30 backward."""
     n, hw = b * J * H * W, b * H * W
-    fwd = _bound(16 * n, 4 * (3 * n + 2 * hw + b * J * 3 + J), "f32")
-    bwd = _bound(30 * n, 4 * (5 * n + 3 * hw + b * J * 6 + J), "f32")
-    return fwd, bwd
+    if kernel == "fwd":
+        return _bound(16 * n, map_bytes * (2 * n + 2 * hw) + hm_bytes * n + 4 * (b * J * 3 + J),
+                      "f32")
+    return _bound(30 * n, 4 * (5 * n + (3 if dlabel else 2) * hw + b * J * 6 + J), "f32")
 
 
 def _rounding_gap(got, want):
@@ -1570,8 +1713,9 @@ def _check_no_spill(log, kernel):
 
 
 def main() -> int:
-    if sys.argv[1:] not in ([], ["--profile"]):
-        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
+    args = sys.argv[1:]
+    if not (args in ([], ["--profile"]) or (args[:1] == ["--decoder"] and len(args) <= 2)):
+        print("usage: chip_smoke.py [--profile | --decoder [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -1592,11 +1736,15 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
         if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots", "tail", "norm_kernel",
-                                   "nr_kernel")) or line.endswith(":"):
+                                   "nr_kernel", "softargmax", "dlabel")) or line.endswith(":"):
             print("ptxas:", line.strip())
-    for kernel in ("conv_wgmma_kernel", "xm_dots_kernel", "tail_kernel", "norm_kernel", "nr_kernel"):
+    for kernel in ("conv_wgmma_kernel", "xm_dots_kernel", "tail_kernel", "norm_kernel", "nr_kernel",
+                   "softargmax_fwd_kernel", "softargmax_bwd_kernel", "dlabel_kernel"):
         _check_no_spill(log, kernel)
-    if sys.argv[1:] == ["--profile"]:
+    if args[:1] == ["--decoder"]:
+        decoder_ab(args[1] if len(args) == 2 else None)
+        return 0
+    if args == ["--profile"]:
         phase_profile(device)
         _tail_per_block(device)
         _engine_by_kernel(device)
@@ -1604,6 +1752,7 @@ def main() -> int:
 
     fwd = phase_kernel(cs, soft_argmax_decode_flat, device)
     bwd = phase_backward(cs, soft_argmax_decode_flat, device)
+    dev = phase_decoder_device(device)
     serve_launches = phase_serve(cs, device)
     phase_reference(device)
     train_launches = phase_train(cs, device)
@@ -1649,9 +1798,16 @@ def main() -> int:
                                  "k4_call": hourglass["statistics_launches"]},
         by_shape_device_us={k: v for k, v in norm_shapes.items() if k != "k4_statistics_us"},
         k4_statistics_us=hourglass["statistics_us"])
-    main_fwd = fwd[(TRAIN_BATCH, "f32")]
-    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _decoder_bounds(TRAIN_BATCH)
+    main_fwd, main_bwd = fwd[(TRAIN_BATCH, "f32")], bwd[TRAIN_BATCH]
     head = units[("head_conv", "bf16")]
+
+    def timing(key):
+        r = dev[key]
+        return {"device_ms": r["device_ms"], "call_ms": r["call_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound_share": r["bound_share"], "plan": r["plan"]}
+
+    fwd_row = timing("fwd train")
+    bwd_row = timing("bwd train without dlabel")
     print(json.dumps({"kernels": [
         {"name": "softargmax_fwd", "route": "cuda", "source": source.format("softargmax_fwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:50",
@@ -1659,15 +1815,28 @@ def main() -> int:
          "launches_by_path": {"serve": serve_launches, "train": train_launches[0],
                               "unit_engine": engine_launches["unit"][2],
                               "fused_engine": engine_launches["fused"][2]},
-         "max_abs_err": main_fwd["max_abs_err"], "ms": main_fwd["ms"],
-         "plain_ms": main_fwd["plain_ms"], "library_ms": None, "bound_ms": fwd_bound,
-         "bound_by": fwd_by, "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32"},
+         "max_abs_err": main_fwd["max_abs_err"], "ms": fwd_row["call_ms"], **fwd_row,
+         "plain_ms": main_fwd["plain_ms"], "library_ms": None,
+         "by_path": {path: timing(f"fwd {path}") for path, *_ in DECODER_SHAPES},
+         "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32",
+         "unit": "ms is call_ms (CUDA events around back-to-back wrapper calls); device_ms a "
+                 "call's device time from a CUDA graph of calls; bound_share = bound/device",
+         "design": "one block a row; the row's x, dm, label and mask in registers from one wave "
+                   "of 16-byte loads, p = exp(z - zmax) / s once an element; rows above 4096 "
+                   "pixels streamed in three passes"},
         {"name": "softargmax_bwd", "route": "cuda", "source": source.format("softargmax_bwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
          "launches": train_launches[1], "launches_by_path": {"train": train_launches[1]},
-         "max_abs_err": bwd[TRAIN_BATCH]["max_abs_err"], "ms": bwd[TRAIN_BATCH]["ms"],
-         "plain_ms": bwd[TRAIN_BATCH]["plain_ms"], "library_ms": None, "bound_ms": bwd_bound,
-         "bound_by": bwd_by, "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32"},
+         "kernel_launches_by_path": {"train": train_launches[2]},
+         "max_abs_err": main_bwd["max_abs_err"], "ms": bwd_row["call_ms"], **bwd_row,
+         "plain_ms": main_bwd["plain_ms"], "library_ms": None,
+         "forms": {"without dlabel (train)": bwd_row, "with dlabel": timing("bwd train with dlabel")},
+         "shape": [TRAIN_BATCH, J, H * W], "dtype": "f32",
+         "unit": "ms is call_ms; device_ms, call_ms and the bound are the training path's "
+                 "form, without dlabel (one kernel); plain_ms is autograd of the plain graph",
+         "design": "one block a row; the row's x, dm, label, mask and g_hm in registers from one "
+                   "wave of 16-byte loads, p once an element, the row's sums in double across "
+                   "the block; dlabel, when asked, a second kernel over ddm"},
         {"name": "fused_chain", "route": "cuda", "source": source.format("fused_chain"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_fused.py:102",
          "launches": engine_launches["unit"][0],

@@ -5,8 +5,12 @@ Two kernels, each in its own source under ``csrc/``:
 
 * K1, ``softargmax_fwd.cu``: the forward (heatmaps and uvd);
 * K2, ``softargmax_bwd.cu``: the backward, which recomputes the forward and
-  returns the gradients of the logits, the depth maps, the label image and
-  the temperature ``w``.
+  returns the gradients of the logits, the depth maps, the temperature
+  ``w`` and, when asked, the label image (a second kernel).
+
+A row runs on one of two plans of the same kernel, which the library
+picks by the row's length and ``plan`` reports: on chip (the row held in
+registers, read once) or streamed (several passes over the row).
 
 Both are built with the port's other kernels into one library by
 ``ops/cuda_lib.py`` the first time a kernel is needed, and bound with
@@ -21,13 +25,15 @@ Wrappers, and what they do with each tensor:
   a ``torch.autograd.Function`` whose forward is K1 and whose backward is K2.
   Its maps must be f32, as the JAX package's custom VJP takes them.
 
-``LAUNCHES`` (K1) and ``BWD_LAUNCHES`` (K2) count kernel launches, so a run
-can show that its main path went through the kernels.
+``LAUNCHES`` (K1) and ``BWD_LAUNCHES`` (K2) count the calls that launched
+the kernels, so a run can show that its main path went through them;
+``BWD_KERNEL_LAUNCHES`` counts K2's kernels (1 a call, 2 with dlabel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +46,7 @@ from pixelwiseregression_tpu_torch.ops.softargmax import (
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_KERNEL_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -48,11 +55,36 @@ _ARGTYPES = {
     "softargmax_fwd": [_I] * 2 + [_P] * 7 + [_I] * 4 + [_P],
     # (x, dm, label, mask, w, g_hm, g_uvd, dx, ddm, dlabel, dw, B, J, H, W, stream)
     "softargmax_bwd": [_P] * 11 + [_I] * 4 + [_P],
+    # (hw, out[2])
+    "softargmax_plan": [_I, _P],
+    # (lo, hi, n, count, stream)
+    "softargmax_div_mismatches": [ctypes.c_float] * 2 + [ctypes.c_longlong, _P, _P],
 }
+_PLANS = ("on_chip", "streamed")
 
 
 def _fn(name):
     return cuda_lib.function(name, _ARGTYPES[name])
+
+
+@functools.lru_cache(maxsize=None)
+def plan(hw: int) -> dict:
+    """The plan both kernels run for a row of ``hw`` pixels, as the library
+    picks it: ``{"plan": "on_chip" | "streamed", "threads": a block's}``."""
+    out = (ctypes.c_int * 2)()
+    cuda_lib.check(_fn("softargmax_plan")(hw, out), "softargmax_plan")
+    return {"plan": _PLANS[out[0]], "threads": out[1]}
+
+
+def div_mismatches(lo: float, hi: float, n: int, device) -> int:
+    """How many of n pairs (a, b), b in [lo, hi), the kernels' branch-free
+    division (``div_rn`` in ``csrc/softargmax_common.cuh``) rounds other
+    than a true division does, on the card."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    rc = _fn("softargmax_div_mismatches")(lo, hi, n, count.data_ptr(),
+                                          torch.cuda.current_stream(device).cuda_stream)
+    cuda_lib.check(rc, "softargmax_div_mismatches")
+    return int(count.item())
 
 
 def _check(x, dm, label, mask, w, h, wd, hm_dtype):
@@ -95,15 +127,18 @@ def _forward(x, dm, label, mask, w, h, wd, hm_dtype):
     return hm, uvd
 
 
-def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
+def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int,
+                         dlabel: bool = True):
     """The decoder's backward (K2, or autograd of the plain version for CPU tensors).
 
     ``x``, ``dm``: ``[B, J, H*W]``; ``label``, ``mask``: ``[B, 1, H*W]``;
     ``w``: ``[J]``, all f32; ``g_hm`` ``[B, J, H*W]`` and ``g_uvd``
     ``[B, J, 3]``: the cotangents of ``decode_flat``'s outputs. Returns
-    ``(dx, ddm, dlabel, dw)`` with ``dw`` ``[J]`` summed over the batch.
+    ``(dx, ddm, dlabel, dw)`` with ``dw`` ``[J]`` summed over the batch;
+    ``dlabel`` is None unless asked for (on the card, asking for it costs a
+    second kernel that reads ``ddm`` back).
     """
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_KERNEL_LAUNCHES
     g_hm = g_hm.to(torch.float32).contiguous()
     g_uvd = g_uvd.to(torch.float32).contiguous()
     if cuda_lib.on_cpu("the decoder", [x, dm, label, mask, w, g_hm, g_uvd]):
@@ -111,7 +146,8 @@ def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
             leaves = [t.detach().requires_grad_(True) for t in (x, dm, label, w)]
             out = soft_argmax_decode_flat(leaves[0], leaves[1], leaves[2], mask, leaves[3],
                                           h, wd)
-            return torch.autograd.grad(out, leaves, (g_hm, g_uvd))
+            dx, ddm, dl, dw = torch.autograd.grad(out, leaves, (g_hm, g_uvd))
+            return dx, ddm, dl if dlabel else None, dw
     _check(x, dm, label, mask, w, h, wd, torch.float32)
     if x.dtype != torch.float32:
         raise TypeError(f"the backward kernel takes f32 maps, got {x.dtype}")
@@ -119,22 +155,25 @@ def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int):
     if g_hm.shape != x.shape or g_uvd.shape != (b, j, 3):
         raise ValueError(f"cotangents g_hm {tuple(g_hm.shape)} g_uvd {tuple(g_uvd.shape)}")
     dx, ddm = torch.empty_like(x), torch.empty_like(x)
-    dlabel = torch.empty_like(label)
+    dl = torch.empty_like(label) if dlabel else None
     dw = torch.empty((b, j), dtype=torch.float32, device=x.device)
     rc = _fn("softargmax_bwd")(
         x.data_ptr(), dm.data_ptr(), label.data_ptr(), mask.data_ptr(), w.data_ptr(),
-        g_hm.data_ptr(), g_uvd.data_ptr(), dx.data_ptr(), ddm.data_ptr(), dlabel.data_ptr(),
-        dw.data_ptr(), b, j, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
+        g_hm.data_ptr(), g_uvd.data_ptr(), dx.data_ptr(), ddm.data_ptr(),
+        dl.data_ptr() if dlabel else None, dw.data_ptr(), b, j, h, wd,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(rc, "softargmax_bwd")
     BWD_LAUNCHES += 1
+    BWD_KERNEL_LAUNCHES += 2 if dlabel else 1
     # per-row dw [B, J] reduces over the batch outside the kernel, as in the JAX package
-    return dx, ddm, dlabel, dw.sum(dim=0)
+    return dx, ddm, dl, dw.sum(dim=0)
 
 
 class _Decode(torch.autograd.Function):
     """K1 forward, K2 backward. The mask gets no gradient (it is 0/1 input
-    data, as in the JAX package's custom VJP). An output the loss does not
-    use reaches the backward as materialized zeros."""
+    data, as in the JAX package's custom VJP), and the label image gets one
+    only when it requires grad (it does not on the training path). An
+    output the loss does not use reaches the backward as materialized zeros."""
 
     @staticmethod
     def forward(ctx, x, dm, label, mask, w, h, wd):
@@ -144,7 +183,8 @@ class _Decode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_hm, g_uvd):
-        dx, ddm, dlabel, dw = decode_flat_backward(*ctx.saved_tensors, g_hm, g_uvd, *ctx.hw)
+        dx, ddm, dlabel, dw = decode_flat_backward(*ctx.saved_tensors, g_hm, g_uvd, *ctx.hw,
+                                                   dlabel=ctx.needs_input_grad[2])
         return dx, ddm, dlabel, None, dw, None, None
 
 

@@ -144,6 +144,89 @@ def test_backward_kernel_matches_plain_autograd(device, shape, use_heatmaps):
     assert float(got[1][0].abs().max()) == 0.0 and float(got[2][0].abs().max()) == 0.0
 
 
+# (B, J, H, W) and the plan both kernels run it on: 64x64 is the main
+# path's map; 128x128 (label_size 128) is too long a row to hold on chip
+PLAN_SHAPES = {(4, 14, 64, 64): "on_chip", (2, 14, 128, 128): "streamed",
+               (3, 21, 24, 40): "on_chip"}
+DTYPE_FORMS = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "float32"),
+               ("bfloat16", "bfloat16")]
+
+
+@pytest.mark.parametrize("form", DTYPE_FORMS, ids=lambda f: f"{f[0]}->{f[1]}")
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_forward_kernel_on_each_plan_and_dtype_form(device, shape, form):
+    """K1 on both plans, in all four dtype forms (maps in, heatmaps out):
+    f32 hm rtol 1e-5 atol 1e-8, bf16 hm within 1 ulp, uvd rtol 1e-5 atol
+    1e-6; sample 0's mask is all zero; two calls give the same bits."""
+    dt, ht = (getattr(torch, f) for f in form)
+    b, j, h, w = shape
+    assert tcuda.plan(h * w)["plan"] == PLAN_SHAPES[shape]
+    x, dm, label, mask, wt = _rows(device, dt, b, j, h, w, seed=13)
+    mask[0] = 0.0
+    hm_k, uvd_k = tcuda.decode_flat(x, dm, label, mask, wt, h, w, hm_dtype=ht)
+    again = tcuda.decode_flat(x, dm, label, mask, wt, h, w, hm_dtype=ht)
+    assert torch.equal(hm_k, again[0]) and torch.equal(uvd_k, again[1])
+    hm_p, uvd_p = tsa.soft_argmax_decode_flat(x, dm, label, mask, wt, h, w)
+    if ht == torch.float32:
+        torch.testing.assert_close(hm_k, hm_p, rtol=1e-5, atol=1e-8)
+    else:
+        ulps = (hm_k.view(torch.int16).int() - hm_p.to(ht).view(torch.int16).int()).abs()
+        assert int(ulps.max()) <= 1
+    torch.testing.assert_close(uvd_k, uvd_p, rtol=1e-5, atol=1e-6)
+    assert float(uvd_k[0, :, 2].abs().max()) == 0.0  # no mask: d = 0 / 1e-14
+
+
+@pytest.mark.parametrize("label_grad", [False, True])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_backward_kernel_on_each_plan(device, shape, label_grad):
+    """K2 on both plans, through the autograd.Function, with the label image
+    requiring grad or not: the kernels a call launched (1, or 2 with
+    dlabel), dx, ddm, dlabel and dw vs autograd of the plain decoder at rtol
+    1e-4 atol 1e-6, exact zeros in ddm and dlabel where the mask is all
+    zero, dlabel equal to ddm summed over j in order from 0 (the dlabel
+    kernel's order), and two calls giving the same bits."""
+    b, j, h, w = shape
+    assert tcuda.plan(h * w)["plan"] == PLAN_SHAPES[shape]
+    x, dm, label, mask, wt = _rows(device, torch.float32, b, j, h, w, seed=14)
+    mask[0] = 0.0
+
+    def grads(decode):
+        leaves = [t.clone().requires_grad_(i != 3 and (i != 2 or label_grad))
+                  for i, t in enumerate((x, dm, label, mask, wt))]
+        hm, uvd = decode(*leaves, h, w)
+        _loss(hm, uvd).backward()
+        return [leaves[i].grad for i in (0, 1, 2, 4)]
+
+    before = (tcuda.BWD_LAUNCHES, tcuda.BWD_KERNEL_LAUNCHES)
+    got = grads(tcuda.decode_flat)
+    torch.cuda.synchronize()
+    assert (tcuda.BWD_LAUNCHES - before[0], tcuda.BWD_KERNEL_LAUNCHES - before[1]) == \
+        (1, 2 if label_grad else 1)
+    again = grads(tcuda.decode_flat)
+    want = grads(tsa.soft_argmax_decode_flat)
+    for name, g, a, r in zip(("dx", "ddm", "dlabel", "dw"), got, again, want):
+        if name == "dlabel" and not label_grad:
+            assert g is None and a is None
+            continue
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6, msg=name)
+    assert float(got[1][0].abs().max()) == 0.0
+    if label_grad:
+        assert float(got[2][0].abs().max()) == 0.0
+        fixed = torch.zeros_like(got[2][:, 0])
+        for jj in range(j):
+            fixed = fixed + got[1][:, jj]
+        assert torch.equal(got[2][:, 0], fixed)
+
+
+@pytest.mark.parametrize("lo, hi", [(1.0, 4096.0), (1e-14, 1.0)])
+def test_branch_free_division_rounds_as_a_true_division(device, lo, hi):
+    """The kernels divide by a row's s (in [1, H*W]) and den (in [1e-14, 1])
+    without __fdiv_rn's branch; on 2^26 pairs it rounds as __fdiv_rn does."""
+    assert tcuda.div_mismatches(lo, hi, 1 << 26, device) == 0
+
+
 def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
     x, dm, label, mask, wt = _rows(device, torch.bfloat16, 2, 4, 8, 8)
     with pytest.raises(TypeError, match="f32"):
@@ -224,7 +307,8 @@ def _train_once(device, decoder, state_dict, batch, draws):
 def test_train_step_through_the_kernels_matches_plain_decoder(device):
     """One f32 train step of a small model (two stages) through K1 + K2
     against decoder='torch', same weights, batch and draws: each stage
-    launches K1 and K2 once; loss rtol 1e-4; the last stage's output convs
+    launches K1 and K2 once, and K2 one kernel (the label image needs no
+    gradient, so no dlabel); loss rtol 1e-4; the last stage's output convs
     and temperature (between the loss and the last ReLU) within 1e-3
     relative; the whole gradient within 5e-2 relative (ReLU inputs near zero
     may flip between two roundings of the forward, see
@@ -237,10 +321,11 @@ def test_train_step_through_the_kernels_matches_plain_decoder(device):
                                    cube=150.0, com_z=450.0, seed=3)
     batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
     draws = draw_augmentation(4, torch.Generator(device=device).manual_seed(4), device)
-    before = (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES)
+    before = (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES, tcuda.BWD_KERNEL_LAUNCHES)
     got, g_k = _train_once(device, "cuda", state_dict, batch, draws)
     torch.cuda.synchronize()
-    assert (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES, tcuda.BWD_KERNEL_LAUNCHES) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2)
     want, g_p = _train_once(device, "torch", state_dict, batch, draws)
     assert torch.isfinite(got["loss"])
     torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-4, atol=0)

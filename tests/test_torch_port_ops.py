@@ -484,6 +484,34 @@ def test_decoder_autograd_matches_pallas_gradients():
     assert np.abs(leaves[1].grad[0].numpy()).max() == 0.0
 
 
+@pytest.mark.parametrize("use_heatmaps", [True, False])
+def test_decoder_without_label_grad_matches_the_call_with_it(use_heatmaps):
+    """Through tcuda.decode_flat on CPU tensors (the plain versions): with
+    the label image not requiring grad, as on the training path, dx, ddm
+    and dw equal those of the call where it does, bit for bit, and no
+    gradient reaches the label image."""
+    logits, dm, label, mask, wt = _decoder_inputs(14, b=2, h=16, w=24, seed=16)
+    mask[0] = 0.0
+    rows = [_t(a).reshape(2, 16 * 24, -1).transpose(1, 2).contiguous()
+            for a in (logits, dm, label, mask)]
+
+    def grads(label_grad):
+        leaves = [t.clone().requires_grad_(i != 3 and (i != 2 or label_grad))
+                  for i, t in enumerate((*rows, _t(wt)))]
+        hm, uvd = tcuda.decode_flat(*leaves, 16, 24)
+        loss = torch.sum(uvd ** 2)
+        if use_heatmaps:
+            loss = loss + 0.1 * torch.sum(hm * hm) + torch.sum(hm[:, 0])
+        loss.backward()
+        return [leaves[i].grad for i in (0, 1, 2, 4)]
+
+    with_label, without = grads(True), grads(False)
+    assert without[2] is None and with_label[2] is not None
+    for name, a, b in zip(("dx", "ddm", "dw"), (without[0], without[1], without[3]),
+                          (with_label[0], with_label[1], with_label[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
 # --------------------------------------------------------------------------- #
 # the port stands alone
 # --------------------------------------------------------------------------- #
