@@ -71,7 +71,13 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    (pixelwiseregression_tpu_torch/tools) at their default shapes with few
    rounds, each through its kernels, with the launches of K5, K3 and each
    K6 piece asserted, and the head unit's dots_only, conv_only and full
-   side by side.
+   side by side;
+15. the port bench (pixelwiseregression_tpu_torch/bench.py) in this
+   process at its defaults (stage 1, batch 256, bf16, 16 calls a sample):
+   the model's forward, the unit engine and the fused engine, then stage 2
+   with the train line (batch 128); every line printed, none an error, the
+   launches of each line's counted call (17 K3, 1 K4 and its tail, K1 a
+   stage, K1 and K2 a stage a train step) and of each whole run asserted.
 
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
 K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
@@ -89,7 +95,7 @@ one in turns, DIR, this, this, DIR, each in its own process.
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
-(serve, train, unit_engine, fused_engine, tools), their times, their plain
+(serve, train, unit_engine, fused_engine, tools, bench), their times, their plain
 versions' and a library call's, and their bounds: the larger of the bytes
 they must move over 3.35 TB/s and their operations over the peak rate of
 their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), for an H100 SXM.
@@ -97,6 +103,8 @@ their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), for an H100 SXM.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -1693,6 +1701,64 @@ def phase_tools():
     return total
 
 
+# the port bench's runs: a name, its flags, its headline metric and the
+# launches of the headline's counted call (any other counter 0); a run
+# without --no_train adds the train line, whose counted step launches
+# BENCH_TRAIN_LAUNCHES (K2 one kernel a call: no dlabel)
+BENCH_RUNS = (
+    ("model stage 1", ["--no_train"], "inference_fps_nyu_stage1_128", {"K1": 1}),
+    ("unit engine stage 1", ["--engine", "unit", "--no_train"],
+     "inference_fps_nyu_stage1_128_instancenorm", {"K3": 17, "K1": 1}),
+    ("fused engine stage 1", ["--engine", "fused", "--no_train"],
+     "inference_fps_nyu_stage1_128_instancenorm", {"K4": 1, "K4_tail": 1, "K1": 1}),
+    ("model stage 2 and train", ["--stages", "2"], "inference_fps_nyu_stage2_128", {"K1": STAGES}),
+)
+BENCH_TRAIN_LAUNCHES = {"K1": STAGES, "K2": STAGES, "K2_kernels": STAGES}
+
+
+def phase_bench():
+    """The port bench's main() for each of BENCH_RUNS in this process, every
+    kernel counter set to 0 just before it and read just after; returns the
+    launches by counter, summed over the runs."""
+    from pixelwiseregression_tpu_torch import bench
+    from pixelwiseregression_tpu_torch.ops import cuda_fused, cuda_hourglass, cuda_softargmax
+
+    total = dict.fromkeys(bench.read_launches(), 0)
+    for name, argv, headline, want in BENCH_RUNS:
+        train = "--no_train" not in argv
+        cuda_softargmax.LAUNCHES = cuda_softargmax.BWD_LAUNCHES = 0
+        cuda_softargmax.BWD_KERNEL_LAUNCHES = 0
+        cuda_fused.LAUNCHES = cuda_hourglass.LAUNCHES = cuda_hourglass.TAIL_LAUNCHES = 0
+        out, t = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = bench.read_launches()
+        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        for line in lines:
+            print(f"bench {name}: {json.dumps(line)}", flush=True)
+        assert rc == 0 and not any("error" in line for line in lines), (name, rc)
+        by_metric = {line["metric"]: line for line in lines if "metric" in line}
+        assert list(by_metric) == [headline, bench.HEALTH_METRIC] + [bench.TRAIN_METRIC] * train, \
+            list(by_metric)
+        assert by_metric[headline]["launches"] == {k: want.get(k, 0) for k in counts}, \
+            (name, by_metric[headline]["launches"])
+        assert by_metric[headline]["samples"] >= 3
+        kernels = set(want)
+        if train:
+            line = by_metric[bench.TRAIN_METRIC]
+            assert line["launches"] == {k: BENCH_TRAIN_LAUNCHES.get(k, 0) for k in counts}, line
+            assert line["samples"] >= 6
+            kernels |= set(BENCH_TRAIN_LAUNCHES)
+        assert {k for k, n in counts.items() if n} == kernels, (name, counts)
+        for k, n in counts.items():
+            total[k] += n
+        print(f"bench {name}: launches {counts} in {seconds:.1f} s", flush=True)
+        _free()
+    return total
+
+
 def _check_no_spill(log, kernel):
     """Raise unless every function of `kernel` in a fresh build's ptxas log
     reports 0 bytes of spill (a cached build has no log: nothing to read);
@@ -1766,6 +1832,7 @@ def main() -> int:
     pieces = phase_ablate(device)
     norm_shapes = phase_norm_shapes(device)
     tool_launches = phase_tools()
+    bench_launches = phase_bench()
 
     source = "pixelwiseregression_tpu_torch/csrc/{}.cu"
     k6 = [("ablate_copy", "ablate_pieces", "copy", "tools/ablate_fused3.py:113",
@@ -1814,7 +1881,8 @@ def main() -> int:
          "launches": train_launches[0],
          "launches_by_path": {"serve": serve_launches, "train": train_launches[0],
                               "unit_engine": engine_launches["unit"][2],
-                              "fused_engine": engine_launches["fused"][2]},
+                              "fused_engine": engine_launches["fused"][2],
+                              "bench": bench_launches["K1"]},
          "max_abs_err": main_fwd["max_abs_err"], "ms": fwd_row["call_ms"], **fwd_row,
          "plain_ms": main_fwd["plain_ms"], "library_ms": None,
          "by_path": {path: timing(f"fwd {path}") for path, *_ in DECODER_SHAPES},
@@ -1826,8 +1894,10 @@ def main() -> int:
                    "pixels streamed in three passes"},
         {"name": "softargmax_bwd", "route": "cuda", "source": source.format("softargmax_bwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
-         "launches": train_launches[1], "launches_by_path": {"train": train_launches[1]},
-         "kernel_launches_by_path": {"train": train_launches[2]},
+         "launches": train_launches[1],
+         "launches_by_path": {"train": train_launches[1], "bench": bench_launches["K2"]},
+         "kernel_launches_by_path": {"train": train_launches[2],
+                                     "bench": bench_launches["K2_kernels"]},
          "max_abs_err": main_bwd["max_abs_err"], "ms": bwd_row["call_ms"], **bwd_row,
          "plain_ms": main_bwd["plain_ms"], "library_ms": None,
          "forms": {"without dlabel (train)": bwd_row, "with dlabel": timing("bwd train with dlabel")},
@@ -1842,7 +1912,7 @@ def main() -> int:
          "launches": engine_launches["unit"][0],
          "launches_by_path": {"unit_engine": engine_launches["unit"][0],
                               "fused_engine": engine_launches["fused"][0],
-                              "tools": tool_launches["K3"]},
+                              "tools": tool_launches["K3"], "bench": bench_launches["K3"]},
          "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
          "library_ms": head["library_ms"], "bound_ms": head["bound_ms"],
          "bound_by": head["bound_by"], "shape": head["shape"], "dtype": "bf16",
@@ -1854,12 +1924,14 @@ def main() -> int:
          "replaces": "pixelwiseregression_tpu/ops/pallas_hourglass.py:188",
          "launches": engine_launches["fused"][1],
          "launches_by_path": {"unit_engine": engine_launches["unit"][1],
-                              "fused_engine": engine_launches["fused"][1]},
+                              "fused_engine": engine_launches["fused"][1],
+                              "bench": bench_launches["K4"]},
          "max_abs_err": hourglass["max_abs_err"], "ms": hourglass["ms"],
          "plain_ms": hourglass["plain_ms"], "library_ms": None,
          "bound_ms": hourglass["bound_ms"], "bound_by": hourglass["bound_by"],
          "tail_source": source.format("hourglass_tail"),
          "tail_launches": engine_launches["fused"][3],
+         "tail_launches_bench": bench_launches["K4_tail"],
          "tail_ms": hourglass["tail_ms"], "tail_bound_ms": hourglass["tail_bound_ms"],
          "tail_max_abs_err": hourglass["tail_max_abs_err"],
          "tail_smem_bytes": hourglass["tail_smem_bytes"],
