@@ -37,29 +37,38 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    are timed for both decoders in turns; one eval step reports mean mm;
 6. the CLI's f32 default (batch 32) takes three steps through the kernels;
 7. one f32 train step of a small model on the card against the CPU;
-8. K3 against its plain version at batch 256, bf16, for every unit kind
+8. the CLI path (phase_cli), as a user runs it: the MSRA fixture
+   (tests/fixtures/make_msra_fixture.py, 9 subjects x 16 frames) indexed
+   with check_dataset's device check, run_training at the CLI's default
+   width (bf16, batch 32, 2 epochs, decoder cuda; K1 once a stage a step
+   and a val batch, K2 once a stage a step, asserted), the saved .pt's
+   anchors calibrated, then run_inference in f32 with the cuda and the
+   torch decoder (Result files within 1e-2, finite, near the fixture's
+   hand) and Predictor.from_checkpoint on the same .pt against the
+   test CLI's Result; samples/s per epoch printed beside the card;
+9. K3 against its plain version at batch 256, bf16, for every unit kind
    that the unit engine launches at full width (and one f32 case), with
    cuDNN's conv alone at the same shape as a partial yardstick, each
    unit's share of its bound and its ratio to cuDNN's conv, the kernels a
    call launches (the conv and one norm kernel per norm) asserted, and the
    plan of each norm (cluster size, resident or streamed);
-9. K4 against its plain version at [256, 64, 64, 128] bf16, level 4, and
+10. K4 against its plain version at [256, 64, 64, 128] bf16, level 4, and
    on its tail's own input ([256, 16, 16, 128], level 2: the levels it
    runs as one block per sample), with the kernels each call reports it
    launched (29 in bf16, 76 in f32) and the tail once in bf16 and never
    in f32, asserted, and the plans of its statistics;
-10. both fused inference engines end to end at full width (NYU: 14
+11. both fused inference engines end to end at full width (NYU: 14
    joints, 2 stages, 128 features, level 4, instance norm, bf16, batch 64)
    on weights made from a seed: the unit engine through 32 K3 and 2 K1
    launches per forward, the fused engine through 2 K4 and 2 K1, each
    against the same engine on the kernels' plain versions and against the
    model's own forward, and frames/s of all three;
-11. a small f32 model with both engines on the card against the CPU;
-12. K5 against its plain version at [128, 64, 64, 128] bf16 and one f32
+12. a small f32 model with both engines on the card against the CPU;
+13. K5 against its plain version at [128, 64, 64, 128] bf16 and one f32
    case, each with a channel at scale = bias = 0, timed beside ATen's
    autograd backward of relu(instance_norm), its two kernels a call
    asserted and its plans printed;
-13. each K6 piece (copy, build_xm and its probes, xm_dots, K3's statistics
+14. each K6 piece (copy, build_xm and its probes, xm_dots, K3's statistics
    and apply alone) at the head shape, batch 256, against its plain
    version, timed beside Tensor.copy_ (in turns, with both spreads),
    build_xm's repeat mode in turns with x.repeat(1, 1, 3), three
@@ -67,12 +76,12 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    then K3's statistics and apply by shape and K4's statistics by launch,
    by device time (phase_norm_shapes, which also measures a parent tree's
    package when this file is loaded by path from the parent's directory);
-14. the tools slice: the five A/B and ablation tools of the port
+15. the tools slice: the five A/B and ablation tools of the port
    (pixelwiseregression_tpu_torch/tools) at their default shapes with few
    rounds, each through its kernels, with the launches of K5, K3 and each
    K6 piece asserted, and the head unit's dots_only, conv_only and full
    side by side;
-15. the port bench (pixelwiseregression_tpu_torch/bench.py) in this
+16. the port bench (pixelwiseregression_tpu_torch/bench.py) in this
    process at its defaults (stage 1, batch 256, bf16, 16 calls a sample):
    the model's forward, the unit engine and the fused engine, then stage 2
    with the train line (batch 128); every line printed, none an error, the
@@ -95,10 +104,11 @@ one in turns, DIR, this, this, DIR, each in its own process.
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
-(serve, train, unit_engine, fused_engine, tools, bench), their times, their plain
-versions' and a library call's, and their bounds: the larger of the bytes
-they must move over 3.35 TB/s and their operations over the peak rate of
-their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), for an H100 SXM.
+(serve, train, cli_train, cli_test, unit_engine, fused_engine, tools, bench),
+their times, their plain versions' and a library call's, and their bounds:
+the larger of the bytes they must move over 3.35 TB/s and their operations
+over the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+f32), for an H100 SXM.
 """
 
 from __future__ import annotations
@@ -755,6 +765,141 @@ def phase_train_reference(device):
     assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h), (loss_c, loss_h)
     assert all(tensor_gaps[n] <= 1e-3 for n in head), [tensor_gaps[n] for n in head]
     assert whole <= 5e-2, whole
+
+
+CLI_FRAMES = 16      # MSRA fixture frames a subject: 9 x 16, subject 0 held out
+CLI_BATCH = 32
+CLI_EPOCHS = 2
+CLI_RESULT_BOUND = 1e-2  # px for u and v, mm for d: the cuda vs torch decoder Result files
+
+
+def _epoch_lines(text):
+    """(train loss, val mean-mm per stage, samples/s) of each printed epoch line."""
+    import re
+
+    pat = r"train_loss ([0-9.e+-]+)\s+val mean-mm \[([^\]]+)\]\s+\(([0-9.]+) samples/s\)"
+    return [(float(a), [float(v) for v in b.split()], float(c))
+            for a, b, c in re.findall(pat, text)]
+
+
+def phase_cli(cs, device, smi_line):
+    """The port's own entry points on the card, the path a user runs first:
+    raw MSRA files -> index (check_dataset's device check) -> threaded Loader
+    -> run_training at the CLI's default width (stages 2, features 128, level
+    4, instance_anchored, bf16 under --mixed_precision, decoder cuda) ->
+    per-epoch checkpoints and the final alias -> run_inference (f32) with the
+    cuda and the torch decoder -> Result files, and Predictor.from_checkpoint
+    on the same .pt. Returns the launches of K1 (train and test) and K2."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from pixelwiseregression_tpu_torch import native
+    from pixelwiseregression_tpu_torch.cli.check_dataset import build_dataset
+    from pixelwiseregression_tpu_torch.cli.common import make_test_parser, make_train_parser
+    from pixelwiseregression_tpu_torch.cli.test_main import run_inference
+    from pixelwiseregression_tpu_torch.cli.train_main import run_training
+    from pixelwiseregression_tpu_torch.data.sources import get_source
+    from pixelwiseregression_tpu_torch.serve import Predictor
+
+    work = tempfile.mkdtemp(prefix="pwr_cli_")
+    cwd, images = os.getcwd(), os.environ.get("PWR_TB_IMAGES")
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "make_msra_fixture.py")
+    try:
+        data = os.path.join(work, "msra")
+        subprocess.run([sys.executable, fixture, data, str(CLI_FRAMES)], check=True,
+                       capture_output=True, timeout=300)
+        t = time.perf_counter()
+        build_dataset("MSRA", data, device)
+        lines = {split: len(get_source("MSRA", path=data, dataset=split, subject=0).lines)
+                 for split in ("train", "val", "test")}
+        print(f"cli: MSRA fixture {9 * CLI_FRAMES} frames, index built with the device check in "
+              f"{time.perf_counter() - t:.2f} s: {lines}; native frame decoder "
+              f"{'built' if native.available() else 'NOT built (numpy decoders ran)'}")
+        assert lines == {"train": 8 * CLI_FRAMES, "val": CLI_FRAMES, "test": CLI_FRAMES}, lines
+        steps_per_epoch = lines["train"] // CLI_BATCH
+        steps = CLI_EPOCHS * steps_per_epoch
+        val_batches = CLI_EPOCHS * -(-lines["val"] // CLI_BATCH)
+
+        # the image logging's forward would launch K1 outside the counted steps
+        os.environ["PWR_TB_IMAGES"] = "0"
+        os.chdir(work)
+        args = make_train_parser(msra=True).parse_args(
+            ["--subject", "0", "--epoch", str(CLI_EPOCHS), "--batch_size", str(CLI_BATCH),
+             "--mixed_precision", "--decoder", "cuda", "--seed", "1", "--data_path", data])
+        assert (args.stages, args.features, args.level, args.norm_method) == \
+            (STAGES, FEATURES, LEVEL, "instance_anchored")
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            best_epoch, best_err = run_training(args, "MSRA", subject=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        train = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
+        epochs = _epoch_lines(out.getvalue())
+        for i, (loss, mm, sps) in enumerate(epochs):
+            print(f"cli train epoch {i}: train_loss {loss:.5f}, val mean-mm {mm}, {sps:.1f} "
+                  f"samples/s ({smi_line}; epoch 0 includes the first step's set-up)")
+        print(f"cli train: {steps} steps and {val_batches} val batches in {seconds:.1f} s, "
+              f"launches K1={train[0]} K2={train[1]} in {train[2]} kernels, best epoch "
+              f"{best_epoch} at {best_err:.3f} mm")
+        assert len(epochs) == CLI_EPOCHS and all(np.isfinite(e[0]) for e in epochs), epochs
+        assert train == (STAGES * (steps + val_batches), STAGES * steps, STAGES * steps), train
+        assert np.isfinite(best_err)
+        final = os.path.join(work, "Model", "MSRA_default_subject0_final.pt")
+        ckpt = torch.load(final, map_location="cpu", weights_only=True)
+        anchors = [v for k, v in ckpt["state_dict"].items() if k.endswith("anchor_n")]
+        assert anchors and all(float(a) > 0 for a in anchors), "anchors not calibrated"
+        assert ckpt["step"] == (best_epoch + 1) * steps_per_epoch and "optimizer" in ckpt
+        assert all(torch.isfinite(v).all() for v in ckpt["state_dict"].values())
+
+        results, test_launches = {}, {}
+        for decoder in ("cuda", "torch"):
+            targs = make_test_parser(msra=True).parse_args(
+                ["--subject", "0", "--batch_size", str(CLI_BATCH), "--decoder", decoder,
+                 "--data_path", data])
+            cs.LAUNCHES = 0
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                name, fps = run_inference(targs, "MSRA", subject=0)
+            torch.cuda.synchronize()
+            test_launches[decoder] = cs.LAUNCHES
+            results[decoder] = np.loadtxt(os.path.join(work, name))
+            print(f"cli test decoder={decoder} f32: {fps:.1f} frames/s, K1 launches "
+                  f"{cs.LAUNCHES}; {text.getvalue().strip().splitlines()[-1]}")
+        test_batches = -(-lines["test"] // CLI_BATCH)
+        assert test_launches == {"cuda": STAGES * test_batches, "torch": 0}, test_launches
+        got, want = results["cuda"], results["torch"]
+        gap = float(np.abs(got - want).max())
+        uvd = got.reshape(-1, 21, 3)
+        med = [float(np.median(uvd[:, :, i])) for i in range(3)]
+        print(f"cli Result cuda vs torch decoder: largest gap {gap:.4f} (bound "
+              f"{CLI_RESULT_BOUND}); medians u {med[0]:.2f} v {med[1]:.2f} d {med[2]:.2f}")
+        assert got.shape == want.shape == (lines["test"], 63), got.shape
+        assert np.isfinite(got).all() and np.isfinite(want).all()
+        assert gap <= CLI_RESULT_BOUND, gap
+        assert 100 < med[0] < 220 and 60 < med[1] < 180 and 300 < med[2] < 500, med
+
+        # the test frames and their float64 hand centres, as the test CLI's records hold them
+        src = get_source("MSRA", path=data, dataset="test", subject=0, test_only=True)
+        raw = [src.load_raw(line) for line in src.lines]
+        pred = Predictor.from_checkpoint(final, "MSRA", device, batch_size=CLI_BATCH,
+                                         dtype=torch.float32, decoder="cuda")
+        p_uvd = pred.predict(np.stack([r[0] for r in raw]), np.stack([r[2] for r in raw]))["uvd"]
+        p_gap = float(np.abs(p_uvd.reshape(len(raw), -1) - got).max())
+        print(f"cli Predictor.from_checkpoint vs the test CLI's Result: largest gap {p_gap:.4f}")
+        assert p_gap <= CLI_RESULT_BOUND, p_gap
+        return {"K1_train": train[0], "K1_test": test_launches["cuda"], "K2": train[1],
+                "K2_kernels": train[2]}
+    finally:
+        os.chdir(cwd)
+        if images is None:
+            os.environ.pop("PWR_TB_IMAGES", None)
+        else:
+            os.environ["PWR_TB_IMAGES"] = images
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_profile(device, steps=3):
@@ -1794,7 +1939,8 @@ def main() -> int:
     device = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
@@ -1824,6 +1970,7 @@ def main() -> int:
     train_launches = phase_train(cs, device)
     phase_train_f32(cs, device)
     phase_train_reference(device)
+    cli_launches = phase_cli(cs, device, smi_line)
     units = phase_fused_units(device)
     hourglass = phase_hourglass(device)
     engine_launches = phase_engines(cs, device)
@@ -1880,6 +2027,8 @@ def main() -> int:
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:50",
          "launches": train_launches[0],
          "launches_by_path": {"serve": serve_launches, "train": train_launches[0],
+                              "cli_train": cli_launches["K1_train"],
+                              "cli_test": cli_launches["K1_test"],
                               "unit_engine": engine_launches["unit"][2],
                               "fused_engine": engine_launches["fused"][2],
                               "bench": bench_launches["K1"]},
@@ -1895,8 +2044,10 @@ def main() -> int:
         {"name": "softargmax_bwd", "route": "cuda", "source": source.format("softargmax_bwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
          "launches": train_launches[1],
-         "launches_by_path": {"train": train_launches[1], "bench": bench_launches["K2"]},
+         "launches_by_path": {"train": train_launches[1], "cli_train": cli_launches["K2"],
+                              "bench": bench_launches["K2"]},
          "kernel_launches_by_path": {"train": train_launches[2],
+                                     "cli_train": cli_launches["K2_kernels"],
                                      "bench": bench_launches["K2_kernels"]},
          "max_abs_err": main_bwd["max_abs_err"], "ms": bwd_row["call_ms"], **bwd_row,
          "plain_ms": main_bwd["plain_ms"], "library_ms": None,

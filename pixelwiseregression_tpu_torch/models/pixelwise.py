@@ -10,14 +10,20 @@ natively and ``compat/flax_bridge.py`` maps the JAX package's params onto it.
 
 ``model.train()`` is the JAX package's ``train=True``: BatchNorm takes batch
 statistics, the anchored instance norms update their anchors, and the
-kernel decoder takes the f32 training boundary. The int8 quantized convs,
-the paired heads and remat come with later parts of the port.
+kernel decoder takes the f32 training boundary. ``remat=True`` is the JAX
+package's ``nn.remat(PredictionBlock)``: each stage runs under
+``torch.utils.checkpoint`` and is recomputed in the backward. The int8
+quantized convs and the paired heads come with later parts of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pixelwiseregression_tpu_torch.models.layers import (
     Conv,
@@ -139,6 +145,40 @@ class PredictionBlock(nn.Module):
         return heatmaps.reshape(b, j, h, wd), depthmaps, uvd
 
 
+def _buffer_contexts(module: nn.Module):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a block whose
+    train-mode forward updates buffers in place (the anchored norms'
+    ``anchor``/``anchor_n``, BatchNorm's running statistics).
+
+    The recompute in the backward runs on the buffers as the forward found
+    them, so that it computes what the forward computed, and leaves them as
+    the forward left them: the buffers move once a step, as under JAX's
+    functional remat, not twice.
+    """
+    before = []
+
+    @contextlib.contextmanager
+    def forward():
+        before[:] = [b.clone() for b in module.buffers()]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        buffers = list(module.buffers())
+        after = [b.clone() for b in buffers]
+        with torch.no_grad():
+            for b, v in zip(buffers, before):
+                b.copy_(v)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for b, v in zip(buffers, after):
+                    b.copy_(v)
+
+    return forward(), recompute()
+
+
 class PixelwiseRegression(nn.Module):
     """Flagship model. ``forward(img [B,1,2S,2S], label_img [B,1,S,S],
     mask [B,1,S,S])`` returns a list of per-stage (heatmaps ``[B,J,S,S]``,
@@ -147,14 +187,20 @@ class PixelwiseRegression(nn.Module):
     ``dtype`` is the activation dtype: img, label_img and mask are cast to it
     first, so under bf16 the decoder sees the bf16-rounded label image and
     mask, as in the JAX package.
+
+    ``remat``: with grad enabled, each stage's activations are recomputed in
+    the backward instead of kept (``torch.utils.checkpoint``, non-reentrant);
+    the stage's forward, the decoder's K1 included, then runs twice a step,
+    and its norms' buffers still move once (``_buffer_contexts``).
     """
 
     def __init__(self, joints: int, stage: int = 2, features: int = 256, level: int = 4,
                  kernel_size: int = 3, norm_method: str = "instance",
                  heatmap_method: str = "softmax", decoder: str = "torch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.level = level
         self.kernel_size = kernel_size
         self.norm_method = norm_method
@@ -182,7 +228,12 @@ class PixelwiseRegression(nn.Module):
         f = self.conv(img.to(self.dtype))
         results = []
         for block in self.stages:
-            heatmaps, depthmaps, uvd = block(f, label_img, mask)
+            if self.remat and torch.is_grad_enabled():
+                heatmaps, depthmaps, uvd = checkpoint(
+                    block, f, label_img, mask, use_reentrant=False,
+                    context_fn=functools.partial(_buffer_contexts, block))
+            else:
+                heatmaps, depthmaps, uvd = block(f, label_img, mask)
             results.append((heatmaps, depthmaps, uvd))
             # next-stage input: concat(heatmaps, depthmaps, label_img) -> 2J+1
             f = torch.cat([heatmaps.to(self.dtype), depthmaps.to(self.dtype), label_img], dim=1)

@@ -10,8 +10,8 @@ Example:
     pred = Predictor.from_checkpoint("Model/NYU_default_final.pt", "NYU", "cuda:0")
     out = pred.predict(frames, coms)   # -> {"uvd": ..., "xyz": ...}
 
-Loading the JAX package's msgpack ``.ckpt`` files comes with the checkpoint
-port; ``compat/flax_bridge.py`` converts its params in memory meanwhile.
+``from_checkpoint`` reads the port's and the reference's ``.pt`` files and
+the JAX package's msgpack ``.ckpt`` (``train/checkpoint.py``, without jax).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from pixelwiseregression_tpu_torch.data.loader import stack_records
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import SPECS, DatasetSpec, load_bbox, make_record
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.train.checkpoint import load_checkpoint
 
 # reference model_param key -> from_state_dict argument
 _MODEL_PARAM_ARGS = {"stage": "stages", "features": "features", "level": "level",
@@ -105,10 +106,12 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, dataset: str, device, **kwargs) -> "Predictor":
-        """Load a ``torch.save``d ``{"state_dict", "model_param", ...}`` file, the
-        reference's checkpoint format, which the port also writes. The
-        architecture stored in ``model_param`` overrides ``kwargs``."""
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        """Load a checkpoint (``train.checkpoint.load_checkpoint``): a
+        ``torch.save``d ``{"state_dict", "model_param", ...}`` file, the
+        reference's format, which the port's train CLI writes, or a JAX
+        ``.ckpt``. The architecture stored in ``model_param`` overrides
+        ``kwargs``."""
+        ckpt = load_checkpoint(path)
         for key, arg in _MODEL_PARAM_ARGS.items():
             if key in (ckpt.get("model_param") or {}):
                 kwargs[arg] = ckpt["model_param"][key]

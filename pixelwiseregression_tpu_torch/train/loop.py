@@ -130,7 +130,7 @@ def total_loss(every_loss, alpha: float):
     return loss
 
 
-def _model_inputs(data):
+def model_inputs(data):
     """NHWC one-channel img, label_img and mask -> NCHW. ``unsqueeze`` gives
     plain NCHW strides (a permute would read as channels_last to cuDNN)."""
     return [data[k][..., 0].unsqueeze(1) for k in ("img", "label_img", "mask")]
@@ -180,7 +180,7 @@ def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
         mark(1)
 
         model = state.model.train()
-        results = model(*_model_inputs(data))
+        results = model(*model_inputs(data))
         every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d, sw)
         loss = total_loss(every, loss_cfg.alpha)
         mark(2)
@@ -214,7 +214,7 @@ def make_eval_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
             if weight is None:
                 weight = torch.ones(data["img"].shape[0], device=data["img"].device)
             weight = weight.to(torch.float32)
-            results = model(*_model_inputs(data))
+            results = model(*model_inputs(data))
             every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d,
                                  weight)
             loss = total_loss(every, loss_cfg.alpha)

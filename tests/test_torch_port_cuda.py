@@ -2,8 +2,9 @@
 (K1) and backward (K2) kernels, the fused conv + instance-norm unit (K3),
 the whole hourglass (K4), the norm+relu backward (K5) and the ablation
 pieces (K6) vs their plain PyTorch versions, the wrappers' checks, the
-Predictor through K1, a train step through K1 and K2, and both inference
-engines through K3, K4 and K1.
+Predictor through K1, a train step through K1 and K2, both inference
+engines through K3, K4 and K1, and the CLIs: Loader batches through pinned
+memory, run_training through K1 and K2 and run_inference through K1.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -12,12 +13,20 @@ without jax (``tests/conftest.py`` imports jax; pass ``--noconftest`` there):
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from pixelwiseregression_tpu_torch.cli.common import make_test_parser, make_train_parser
+from pixelwiseregression_tpu_torch.cli.test_main import run_inference
+from pixelwiseregression_tpu_torch.cli.train_main import run_training
+from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, draw_augmentation
-from pixelwiseregression_tpu_torch.data.sources import SPECS
+from pixelwiseregression_tpu_torch.data.sources import SPECS, get_source
 from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
 from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
 from pixelwiseregression_tpu_torch.ops import ablate_pieces as tap
@@ -926,3 +935,86 @@ def test_normrelu_backward_on_a_cluster_matches_plain_version(device, case):
         torch.testing.assert_close(dx, want[0], rtol=0, atol=1e-5 * float(want[0].abs().max()))
     torch.testing.assert_close(ds, want[1], rtol=1e-4, atol=1e-2)
     torch.testing.assert_close(db, want[2], rtol=1e-4, atol=1e-2)
+
+
+# --------------------------------------------------------------------------- #
+# the CLI path: raw files -> Loader -> pinned memory -> train/test CLIs
+# --------------------------------------------------------------------------- #
+
+_MSRA_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                             "make_msra_fixture.py")
+_CLI_SMALL = ["--features", "16", "--level", "2", "--label_size", "32", "--batch_size", "16",
+              "--num_workers", "2"]
+
+
+@pytest.fixture(scope="module")
+def msra_root(tmp_path_factory):
+    """The synthetic MSRA fixture (9 subjects x 4 frames) with its index built."""
+    root = str(tmp_path_factory.mktemp("msra"))
+    subprocess.run([sys.executable, _MSRA_FIXTURE, root], check=True, capture_output=True)
+    get_source("MSRA", path=root, dataset="train", subject=0)
+    return root
+
+
+def test_loader_batches_reach_the_card_through_pinned_memory(device, msra_root):
+    """Every field of a Loader batch arrives on the card unchanged (values,
+    dtypes, shapes) through to_device's pinned, non-blocking copies."""
+    src = get_source("MSRA", path=msra_root, dataset="train", subject=0)
+    for batch in Loader(src, 8, shuffle=True, seed=3, num_workers=2):
+        got = to_device(batch, device)
+        torch.cuda.synchronize()
+        assert got.keys() == batch.keys()
+        for k, v in batch.items():
+            assert got[k].device == device and got[k].shape == v.shape, k
+            assert torch.equal(got[k].cpu(), torch.from_numpy(np.asarray(v))), k
+
+
+def _train_cli(msra_root, workdir, monkeypatch, *argv):
+    monkeypatch.chdir(workdir)
+    # the image logging's forward would launch K1 outside the counted steps
+    monkeypatch.setenv("PWR_TB_IMAGES", "0")
+    args = make_train_parser(msra=True).parse_args(
+        ["--subject", "0", "--seed", "1", "--data_path", msra_root, *_CLI_SMALL, *argv])
+    return run_training(args, "MSRA", subject=0)
+
+
+def test_train_cli_runs_through_k1_and_k2(device, msra_root, tmp_path, monkeypatch):
+    """run_training on the card, two epochs of two steps at batch 16 (bf16,
+    decoder cuda): K1 once a stage a train step and a val batch, K2 once a
+    stage a train step in one kernel; the saved .pt has calibrated anchors
+    and finite params."""
+    before = (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES, tcuda.BWD_KERNEL_LAUNCHES)
+    best_epoch, best_err = _train_cli(msra_root, tmp_path, monkeypatch, "--epoch", "2",
+                                      "--mixed_precision", "--decoder", "cuda")
+    torch.cuda.synchronize()
+    steps, val_batches, stages = 2 * 2, 2 * 1, 2
+    assert (tcuda.LAUNCHES - before[0], tcuda.BWD_LAUNCHES - before[1],
+            tcuda.BWD_KERNEL_LAUNCHES - before[2]) == \
+        (stages * (steps + val_batches), stages * steps, stages * steps)
+    assert np.isfinite(best_err)
+    ckpt = torch.load(tmp_path / "Model" / "MSRA_default_subject0_final.pt", weights_only=True)
+    assert ckpt["step"] == 2 * (best_epoch + 1) and ckpt["optimizer"]["state"]
+    anchors = [v for k, v in ckpt["state_dict"].items() if k.endswith("anchor_n")]
+    assert anchors and all(float(a) == ckpt["step"] for a in anchors)
+    assert all(torch.isfinite(v).all() for v in ckpt["state_dict"].values())
+
+
+def test_test_cli_kernel_decoder_matches_the_plain_decoder(device, msra_root, tmp_path,
+                                                            monkeypatch):
+    """The f32 test CLI on one trained checkpoint with --decoder cuda (K1
+    once a stage a batch) and --decoder torch: Result files within 1e-2
+    (pixels for u and v, mm for d; chip_smoke.py's phase_cli bound), finite,
+    one row of 63 values a test frame."""
+    _train_cli(msra_root, tmp_path, monkeypatch, "--epoch", "1")
+    results = {}
+    for decoder in ("cuda", "torch"):
+        args = make_test_parser(msra=True).parse_args(
+            ["--subject", "0", "--data_path", msra_root, "--decoder", decoder, *_CLI_SMALL])
+        before = tcuda.LAUNCHES
+        name, _ = run_inference(args, "MSRA", subject=0)
+        torch.cuda.synchronize()
+        assert tcuda.LAUNCHES - before == (2 if decoder == "cuda" else 0)
+        results[decoder] = np.loadtxt(tmp_path / name)
+    assert results["cuda"].shape == results["torch"].shape == (4, 63)
+    assert np.isfinite(results["cuda"]).all()
+    np.testing.assert_allclose(results["cuda"], results["torch"], rtol=0, atol=1e-2)

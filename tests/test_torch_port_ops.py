@@ -82,10 +82,22 @@ def test_recover_uvd_matches():
 
 
 def test_dataset_specs_match_field_for_field():
-    """Drift guard: the port's numpy copy of the dataset constants."""
+    """Drift guard: the port's numpy copy of the dataset constants, the NYU
+    joint subset, the sources' names and specs and MSRA's index file names
+    (the sources themselves: tests/test_torch_port_data.py)."""
     assert tsrc.SPECS.keys() == jsrc.SPECS.keys()
     for name in jsrc.SPECS:
         assert dataclasses.asdict(tsrc.SPECS[name]) == dataclasses.asdict(jsrc.SPECS[name])
+    assert tsrc.NYU_JOINT_INDEX == jsrc.NYU_JOINT_INDEX
+    assert tsrc.SOURCES.keys() == jsrc.SOURCES.keys()
+    for name, cls in jsrc.SOURCES.items():
+        port = tsrc.SOURCES[name]
+        assert port.__name__ == cls.__name__
+        assert dataclasses.asdict(port.SPEC) == dataclasses.asdict(cls.SPEC)
+    for split in ("train", "val", "test"):  # MSRA's per-subject index files
+        got = tsrc.MSRASource(".", dataset=split, subject=3, build=False)
+        want = jsrc.MSRASource(".", dataset=split, subject=3, build=False)
+        assert got.index_filename() == want.index_filename() == f"{split}_3.txt"
 
 
 @pytest.mark.parametrize("dataset", DATASETS)
@@ -519,6 +531,8 @@ def test_decoder_without_label_grad_matches_the_call_with_it(use_heatmaps):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh process (this one already imported jax for the tests):
+    importing every module of the port, the CLI entry modules and the native
+    decoder's binding included, imports neither jax nor the JAX package,
     nor the JAX package's ``bench.py`` and top-level ``tools/``."""
     script = (
         "import importlib, pkgutil, sys\n"
@@ -529,9 +543,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'pixelwiseregression_tpu', 'bench', 'tools')]\n"
         "assert not bad, bad\n"
-        "print('MODULES', len(mods))\n"
+        "print('MODULES', ' '.join(mods))\n"
     )
     r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                        timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split("MODULES")[1]) >= 35  # 27 modules + 8 subpackages
+    mods = set(r.stdout.split("MODULES")[1].split())
+    pkg = "pixelwiseregression_tpu_torch."
+    new = {"cli", "cli.common", "cli.check_dataset", "cli.train_main", "cli.test_main",
+           "cli.train", "cli.train_msra", "cli.test", "cli.test_msra", "native",
+           "train.checkpoint", "utils.seeding", "utils.viz", "data.sources", "data.loader"}
+    assert {pkg + m for m in new} <= mods, sorted({pkg + m for m in new} - mods)
+    assert len(mods) >= 49  # 39 modules + 10 subpackages
