@@ -84,9 +84,26 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 16. the port bench (pixelwiseregression_tpu_torch/bench.py) in this
    process at its defaults (stage 1, batch 256, bf16, 16 calls a sample):
    the model's forward, the unit engine and the fused engine, then stage 2
-   with the train line (batch 128); every line printed, none an error, the
-   launches of each line's counted call (17 K3, 1 K4 and its tail, K1 a
-   stage, K1 and K2 a stage a train step) and of each whole run asserted.
+   with the train line (batch 128), then stage 1 with the int8 serving line
+   (--serving: batch norm, bf16, int8_static_all, in turns with the
+   headline); every line printed, none an error, the launches of each
+   line's counted call (17 K3, 1 K4 and its tail, K1 a stage, K1 and K2 a
+   stage a train step, K1 and 42 torch._int_mm for the serving line) and of
+   each whole run asserted.
+
+After the CLI path (8.) comes the serving chain (phase_serving_chain): the
+full-width NYU Predictor at its defaults (instance norm, f32, K1; batch
+32) exported to a .pwrsrv and served from a fresh process that cannot
+import the port's models, its serve module or jax (2 K1 launches a
+request, read there; uvd within 1e-4 of the live Predictor), a poly-batch
+artifact at request sizes 1 and 5, the HTTP server over the artifact with
+8 concurrent clients of 4 frames a burst (replies equal to direct
+predicts, device_calls < requests, p50/p99 and frames/s), the bf16
+batch-norm int8_static_all Predictor (4 calibration requests, finite, K1
+and torch._int_mm counted, timed in turns with bf16), the int8 conv at the
+head shape card vs CPU (int32 accumulators bit-exact) and timed beside
+cuDNN's bf16 conv, and a small f32 batch-norm int8_static_all model card
+vs CPU.
 
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
 K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
@@ -104,7 +121,8 @@ one in turns, DIR, this, this, DIR, each in its own process.
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
-(serve, train, cli_train, cli_test, unit_engine, fused_engine, tools, bench),
+(serve, train, cli_train, cli_test, artifact, http, int8_serve,
+unit_engine, fused_engine, tools, bench),
 their times, their plain versions' and a library call's, and their bounds:
 the larger of the bytes they must move over 3.35 TB/s and their operations
 over the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
@@ -900,6 +918,285 @@ def phase_cli(cs, device, smi_line):
         else:
             os.environ["PWR_TB_IMAGES"] = images
         shutil.rmtree(work, ignore_errors=True)
+
+
+SERVE_CHAIN_BATCH = 32
+ARTIFACT_GAP_BOUND = 1e-4  # px / mm: the artifact runs the live Predictor's own function
+HTTP_CLIENTS = 8           # concurrent clients a burst, each with HTTP_FRAMES frames
+HTTP_FRAMES = 4
+HTTP_BURSTS = 3
+INT8_HEAD_BATCH = 4        # the int8 conv alone at the head shape, card vs CPU
+
+_ARTIFACT_CHILD = """
+import json, sys, time
+class _Block:
+    BLOCKED = ("jax", "flax", "pixelwiseregression_tpu", "pixelwiseregression_tpu_torch.models",
+               "pixelwiseregression_tpu_torch.serve")
+    def find_spec(self, name, *a, **k):
+        if name in self.BLOCKED or any(name.startswith(b + ".") for b in self.BLOCKED):
+            raise ImportError("blocked in the serving process: " + name)
+sys.meta_path.insert(0, _Block())
+import numpy as np, torch
+from pixelwiseregression_tpu_torch.ops import cuda_softargmax as cs
+from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact
+path, reqs, out = sys.argv[1:4]
+t = time.perf_counter()
+art = ServingArtifact.load(path, "cuda:0")
+load_s = time.perf_counter() - t
+data = np.load(reqs)
+launches, uvd = [], {}
+for i in range(len(data.files) // 2):
+    before = cs.LAUNCHES
+    uvd[str(i)] = art.predict(data[f"frame{i}"], data[f"com{i}"])["uvd"]
+    torch.cuda.synchronize()
+    launches.append(cs.LAUNCHES - before)
+np.savez(out, **uvd)
+blocked = sorted(m for m in sys.modules if m.startswith(
+    ("jax", "pixelwiseregression_tpu_torch.models", "pixelwiseregression_tpu_torch.serve.")))
+print(json.dumps({"load_s": load_s, "launches": launches, "imported_blocked": blocked}))
+"""
+
+
+def phase_serving_chain(cs, device, smi_line):
+    """The deployment chain at full width (NYU, 14 joints, 2 stages, 128
+    features, level 4, weights from a seed), as a user runs it: a Predictor
+    at its defaults (instance norm, f32, K1; batch 32) exported to a
+    .pwrsrv, loaded in a fresh process that cannot import the port's models,
+    its serve module or jax, answering the four requests (2 K1 launches a
+    request, read there; uvd within ARTIFACT_GAP_BOUND of the live
+    Predictor); a poly-batch artifact at request sizes 1 and 5 against live
+    Predictors of those batch sizes; the HTTP server over the artifact, 8
+    concurrent clients of 4 frames a burst (replies equal to the artifact's
+    direct predict, device_calls < requests, p50/p99 and frames/s); the bf16
+    batch-norm int8_static_all Predictor: 4 calibration requests and one
+    more, finite, its K1 launches and torch._int_mm calls counted, timed in
+    turns with the same model in bf16; the int8 conv alone at the head shape,
+    card vs CPU (int32 accumulators bit-exact, output within 1 f32 ulp) and
+    timed beside cuDNN's bf16 conv; a small f32 batch-norm int8_static_all
+    model, card vs CPU. Returns the launches by path."""
+    import tempfile
+    import threading
+
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.models import layers
+    from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.serve import Predictor
+    from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact, export_artifact
+    from pixelwiseregression_tpu_torch.serve_http import Client, make_server
+
+    spec = SPECS["NYU"]
+    requests = _requests(spec)
+    torch.manual_seed(SEED + 5)
+    state = PixelwiseRegression(spec.joint_number, stage=STAGES, features=128, level=4,
+                                kernel_size=3).state_dict()
+    pred = Predictor.from_state_dict(state, "NYU", device, batch_size=SERVE_CHAIN_BATCH,
+                                     stages=STAGES)
+    assert pred.model.dtype == torch.float32 and pred.model.norm_method == "instance"
+    live = [pred.predict(r["frame"], r["com"]) for r in requests]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nyu.pwrsrv")
+        t = time.perf_counter()
+        header = export_artifact(pred, path)
+        export_s = time.perf_counter() - t
+        np.savez(os.path.join(tmp, "req.npz"),
+                 **{f"{k}{i}": r[k] for i, r in enumerate(requests) for k in ("frame", "com")})
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_CHILD, path, os.path.join(tmp, "req.npz"),
+             os.path.join(tmp, "uvd.npz")], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        assert child.returncode == 0, child.stderr[-3000:]
+        report = json.loads(child.stdout.strip().splitlines()[-1])
+        got = np.load(os.path.join(tmp, "uvd.npz"))
+        gap = max(float(np.abs(got[str(i)] - live[i]["uvd"]).max()) for i in range(len(live)))
+        print(f"serving chain: artifact {os.path.getsize(path) / 1e6:.1f} MB exported in "
+              f"{export_s:.1f} s ({header['format']}, batch {header['batch_size']}); a fresh "
+              f"process without the model code loaded it in {report['load_s']:.1f} s "
+              f"({time.perf_counter() - t:.1f} s with its start); K1 launches a request "
+              f"{report['launches']}; uvd vs the live Predictor {gap:.3e} px/mm", flush=True)
+        assert report["launches"] == [STAGES] * len(requests), report
+        assert not report["imported_blocked"], report
+        assert gap <= ARTIFACT_GAP_BOUND, gap
+        out["artifact"] = sum(report["launches"])
+
+        poly = os.path.join(tmp, "poly.pwrsrv")
+        export_artifact(pred, poly, poly_batch=True)
+        art = ServingArtifact.load(poly, device)
+        cs.LAUNCHES = 0
+        for n in (1, 5):
+            want = Predictor(pred.model, spec, pred.cfg, n, device).predict(
+                requests[0]["frame"][:n], requests[0]["com"][:n])["uvd"]
+            before = cs.LAUNCHES
+            uvd = art.predict(requests[0]["frame"][:n], requests[0]["com"][:n])["uvd"]
+            pgap = float(np.abs(uvd - want).max())
+            print(f"serving chain: poly-batch artifact at request size {n}: K1 launches "
+                  f"{cs.LAUNCHES - before}, uvd vs a live Predictor of batch {n} {pgap:.3e}")
+            assert uvd.shape == (n, J, 3) and pgap <= ARTIFACT_GAP_BOUND, (n, pgap)
+        del art
+
+        art = ServingArtifact.load(path, device)
+        fps = {"live": [], "artifact": []}
+        for rep in range(4):
+            for name in (("live", "artifact") if rep % 2 == 0 else ("artifact", "live")):
+                fps[name].append(_fps(pred if name == "live" else art, requests[0]))
+        for name, vals in fps.items():
+            print(f"serving chain: f32 {name} predict frames/s batch 32: median "
+                  f"{statistics.median(vals):.1f} of {[round(v, 1) for v in vals]}")
+        out["predict_fps"] = {k: statistics.median(v) for k, v in fps.items()}
+        meta = {"dataset": "NYU", "batch_size": header["batch_size"], "frame_h": spec.frame_h,
+                "frame_w": spec.frame_w, "cube_default": spec.cube_size,
+                "backend": f"artifact[{device}]"}
+        srv = make_server(art, meta, "127.0.0.1", 0, access_log=False, linger_s=0.005)
+        server = threading.Thread(target=srv.serve_forever, daemon=True)
+        server.start()
+        try:
+            client = Client(f"http://127.0.0.1:{srv.server_address[1]}")
+            frames = np.concatenate([r["frame"] for r in requests])
+            coms = np.concatenate([r["com"] for r in requests])
+            chunks = [(frames[i * HTTP_FRAMES:(i + 1) * HTTP_FRAMES],
+                       coms[i * HTTP_FRAMES:(i + 1) * HTTP_FRAMES]) for i in range(HTTP_CLIENTS)]
+            direct = [art.predict(f, c)["uvd"] for f, c in chunks]
+            cs.LAUNCHES = 0
+            walls, replies = [], []
+            for _ in range(HTTP_BURSTS):
+                got_burst = [None] * HTTP_CLIENTS
+
+                def post(i, got_burst=got_burst):
+                    got_burst[i] = client.predict(*chunks[i])["uvd"]
+
+                threads = [threading.Thread(target=post, args=(i,)) for i in range(HTTP_CLIENTS)]
+                t = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=300)
+                walls.append(time.perf_counter() - t)
+                replies.append(got_burst)
+            metrics = client.metrics()
+            http_launches = cs.LAUNCHES
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.batcher.stop()
+        equal = all(np.array_equal(g, d) for burst in replies for g, d in zip(burst, direct))
+        n_req = HTTP_CLIENTS * HTTP_BURSTS
+        fps = n_req * HTTP_FRAMES / sum(walls)
+        print(f"serving chain: HTTP over the artifact, {HTTP_BURSTS} bursts of {HTTP_CLIENTS} "
+              f"clients x {HTTP_FRAMES} frames: requests {metrics['requests']}, device_calls "
+              f"{metrics['device_calls']}, batch_fill {metrics['batch_fill']:.1f}, latency p50 "
+              f"{metrics['latency_ms']['p50']} ms p99 {metrics['latency_ms']['p99']} ms, "
+              f"{fps:.1f} frames/s (bursts {[round(w, 3) for w in walls]} s); K1 launches "
+              f"{http_launches}; replies equal to the direct predict: {equal}; {smi_line}",
+              flush=True)
+        assert metrics["requests"] == n_req and metrics["errors"] == 0, metrics
+        assert metrics["device_calls"] < n_req, metrics
+        assert http_launches == STAGES * metrics["device_calls"], http_launches
+        assert equal
+        out["http"] = http_launches
+        del art
+    del pred
+    _free()
+
+    # int8: the bf16 batch-norm int8_static_all Predictor at full width
+    torch.manual_seed(SEED + 6)
+    state_b = PixelwiseRegression(spec.joint_number, stage=STAGES, features=128, level=4,
+                                  norm_method="batch").state_dict()
+    kw = dict(batch_size=SERVE_CHAIN_BATCH, stages=STAGES, norm_method="batch",
+              dtype=torch.bfloat16)
+    pq = Predictor.from_state_dict(state_b, "NYU", device, quant="int8_static_all", **kw)
+    pb = Predictor.from_state_dict(state_b, "NYU", device, **kw)
+    convs = sum(1 for m in pq.model.modules() if isinstance(m, layers.Conv) and m.quant)
+    calib = pq.calib_left
+    cs.LAUNCHES, layers.INT_MM_CALLS = 0, 0
+    outs = [pq.predict(r["frame"], r["com"]) for r in requests + requests[:1]]
+    torch.cuda.synchronize()
+    forwards = 2 * calib + len(requests) + 1 - calib
+    scales = layers.quant_scales(pq.model)
+    print(f"serving chain: int8_static_all bf16 batch norm, {convs} int8 convs: {calib} "
+          f"calibration requests then {len(outs) - calib}; K1 launches {cs.LAUNCHES}, "
+          f"torch._int_mm calls {layers.INT_MM_CALLS} ({forwards} forwards); every scale "
+          f"positive: {all(float(v.max()) > 0 for v in scales.values())}", flush=True)
+    assert pq.calib_left == 0 and all(np.isfinite(o["uvd"]).all() for o in outs)
+    assert all(float(v.max()) > 0 for v in scales.values())
+    assert cs.LAUNCHES == STAGES * forwards and layers.INT_MM_CALLS == convs * forwards
+    out["int8_serve"], out["int_mm"] = cs.LAUNCHES, layers.INT_MM_CALLS
+    fps = {"int8": [], "bf16": []}
+    for rep in range(4):
+        for name in (("int8", "bf16") if rep % 2 == 0 else ("bf16", "int8")):
+            fps[name].append(_fps(pq if name == "int8" else pb, requests[0]))
+    for name, vals in fps.items():
+        print(f"serving chain: Predictor frames/s {name} batch norm batch 32: median "
+              f"{statistics.median(vals):.1f} of {[round(v, 1) for v in vals]}")
+    out["fps"] = {k: statistics.median(v) for k, v in fps.items()}
+    del pq, pb
+    _free()
+
+    # the int8 conv alone at the head shape: card vs CPU, and timed
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    x = torch.randn(INT8_HEAD_BATCH, FEATURES, H, W, generator=gen)
+    w = torch.randn(FEATURES, FEATURES, 3, 3, generator=gen) * 0.05
+    b = torch.randn(FEATURES, generator=gen)
+    for scales in (None, x.abs().amax(dim=(0, 2, 3))):
+        x_q, w_q, _ = layers.int8_codes(x, w, scales)
+        cpu_acc = layers.int8_gemm(x_q, w_q)
+        card_acc = layers.int8_gemm(x_q.to(device), w_q.to(device)).cpu()
+        cpu_y = layers.int8_conv2d(x, w, b, 1, scales)
+        card_y = layers.int8_conv2d(*(t.to(device) for t in (x, w, b)), 1,
+                                    None if scales is None else scales.to(device)).cpu()
+        ulps = float(((card_y - cpu_y).abs() / torch.from_numpy(
+            np.spacing(cpu_y.abs().numpy()))).max())
+        print(f"serving chain: int8 conv [{INT8_HEAD_BATCH},{FEATURES},{H},{W}] 3x3 "
+              f"{'static' if scales is not None else 'dynamic'}, card vs CPU: int32 accumulators "
+              f"equal {torch.equal(card_acc, cpu_acc)}, output within {ulps:.1f} ulp")
+        assert torch.equal(card_acc, cpu_acc) and ulps <= 1.0
+    xb = torch.randn(SERVE_CHAIN_BATCH, FEATURES, H, W, device=device).to(torch.bfloat16)
+    wd, bd = w.to(device), b.to(device)
+    scale = xb.float().abs().amax(dim=(0, 2, 3))
+    times = _interleaved_ms([lambda: layers.int8_conv2d(xb, wd, bd, 1, scale),
+                             lambda: torch.nn.functional.conv2d(xb, wd.to(xb.dtype),
+                                                                bd.to(xb.dtype), padding=1)])
+    print(f"serving chain: head conv [{SERVE_CHAIN_BATCH},{FEATURES},{H},{W}] 3x3 bf16 in: "
+          f"int8 (im2col + torch._int_mm) {times[0][0]:.4f} ms, cuDNN bf16 "
+          f"{times[1][0]:.4f} ms (medians, in turns); {smi_line}")
+    out["head_conv_ms"] = {"int8": times[0][0], "bf16": times[1][0]}
+    del xb
+    _free()
+
+    # a small f32 int8 model, card vs CPU, on the CPU's calibrated scales. The
+    # serving configuration's batch norm: with instance norms a random-weight
+    # model moves its uvd by ~1e-3 of the scale in f32, and by ~0.1-0.2 in
+    # int8, for inputs 1e-6 apart (tests/torch_port_int8_sensitivity.py)
+    from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
+
+    torch.manual_seed(SEED + 8)
+    small = PixelwiseRegression(spec.joint_number, stage=STAGES, features=16, level=2,
+                                norm_method="batch").state_dict()
+    kw = dict(batch_size=4, stages=STAGES, features=16, level=2, norm_method="batch")
+    raw = make_synthetic_raw_batch(3, spec.frame_h, spec.frame_w, spec.joint_number,
+                                   fx=spec.camera.fx, fy=spec.camera.fy, cube=spec.cube_size,
+                                   com_z=470.0, seed=SEED + 9)
+    host = Predictor.from_state_dict(small, "NYU", "cpu", quant="int8_static_all",
+                                     quant_calib_batches=1, **kw)
+    want = host.predict(raw["frame"], raw["com"])["uvd"]
+    card = Predictor.from_state_dict(small, "NYU", device, quant="int8_static_all",
+                                     quant_calib_batches=0, **kw)
+    layers.load_quant_scales(card.model, layers.quant_scales(host.model))
+    got = card.predict(raw["frame"], raw["com"])["uvd"]
+    f32 = Predictor.from_state_dict(small, "NYU", "cpu", **kw).predict(raw["frame"], raw["com"])
+    box = raw["box_size"][:, None].astype(np.float64) - 1.0
+    cube = raw["cube"][:, None].astype(np.float64)
+
+    def norm_gap(a, c):
+        d = np.abs(a - c)
+        return float(max((d[..., 0] / box).max(), (d[..., 1] / box).max(),
+                         (d[..., 2] / cube).max()))
+
+    gap, own = norm_gap(got, want), norm_gap(want, f32["uvd"])
+    print(f"serving chain: small f32 batch-norm int8_static_all model, card vs CPU: {gap:.3e} of the uvd "
+          f"scale (bound twice the CPU's own int8-vs-f32 gap, {own:.3e})")
+    assert np.isfinite(got).all() and gap <= 2 * own, (gap, own)
+    return out
 
 
 def phase_profile(device, steps=3):
@@ -1851,14 +2148,20 @@ def phase_tools():
 # without --no_train adds the train line, whose counted step launches
 # BENCH_TRAIN_LAUNCHES (K2 one kernel a call: no dlabel)
 BENCH_RUNS = (
-    ("model stage 1", ["--no_train"], "inference_fps_nyu_stage1_128", {"K1": 1}),
-    ("unit engine stage 1", ["--engine", "unit", "--no_train"],
+    ("model stage 1", ["--no_train", "--no_serving"], "inference_fps_nyu_stage1_128", {"K1": 1}),
+    ("unit engine stage 1", ["--engine", "unit", "--no_train", "--no_serving"],
      "inference_fps_nyu_stage1_128_instancenorm", {"K3": 17, "K1": 1}),
-    ("fused engine stage 1", ["--engine", "fused", "--no_train"],
+    ("fused engine stage 1", ["--engine", "fused", "--no_train", "--no_serving"],
      "inference_fps_nyu_stage1_128_instancenorm", {"K4": 1, "K4_tail": 1, "K1": 1}),
-    ("model stage 2 and train", ["--stages", "2"], "inference_fps_nyu_stage2_128", {"K1": STAGES}),
+    ("model stage 2 and train", ["--stages", "2", "--no_serving"], "inference_fps_nyu_stage2_128",
+     {"K1": STAGES}),
+    ("model and int8 serving stage 1", ["--no_train", "--serving"], "inference_fps_nyu_stage1_128",
+     {"K1": 1}),
 )
 BENCH_TRAIN_LAUNCHES = {"K1": STAGES, "K2": STAGES, "K2_kernels": STAGES}
+# the serving line's counted call at stage 1: K1 and the int8 convs' products
+# (3 in the stem, 33 in the hourglass's ResBlocks, 6 in the heads)
+BENCH_SERVING_LAUNCHES = {"K1": 1, "int_mm": 42}
 
 
 def phase_bench():
@@ -1866,14 +2169,17 @@ def phase_bench():
     kernel counter set to 0 just before it and read just after; returns the
     launches by counter, summed over the runs."""
     from pixelwiseregression_tpu_torch import bench
+    from pixelwiseregression_tpu_torch.models import layers
     from pixelwiseregression_tpu_torch.ops import cuda_fused, cuda_hourglass, cuda_softargmax
 
     total = dict.fromkeys(bench.read_launches(), 0)
     for name, argv, headline, want in BENCH_RUNS:
         train = "--no_train" not in argv
+        serving = "--serving" in argv
         cuda_softargmax.LAUNCHES = cuda_softargmax.BWD_LAUNCHES = 0
         cuda_softargmax.BWD_KERNEL_LAUNCHES = 0
         cuda_fused.LAUNCHES = cuda_hourglass.LAUNCHES = cuda_hourglass.TAIL_LAUNCHES = 0
+        layers.INT_MM_CALLS = 0
         out, t = io.StringIO(), time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = bench.main(argv)
@@ -1885,12 +2191,18 @@ def phase_bench():
             print(f"bench {name}: {json.dumps(line)}", flush=True)
         assert rc == 0 and not any("error" in line for line in lines), (name, rc)
         by_metric = {line["metric"]: line for line in lines if "metric" in line}
-        assert list(by_metric) == [headline, bench.HEALTH_METRIC] + [bench.TRAIN_METRIC] * train, \
-            list(by_metric)
+        assert list(by_metric) == ([headline, bench.HEALTH_METRIC]
+                                   + [bench.serving_metric(1)] * serving
+                                   + [bench.TRAIN_METRIC] * train), list(by_metric)
         assert by_metric[headline]["launches"] == {k: want.get(k, 0) for k in counts}, \
             (name, by_metric[headline]["launches"])
         assert by_metric[headline]["samples"] >= 3
         kernels = set(want)
+        if serving:
+            line = by_metric[bench.serving_metric(1)]
+            assert line["launches"] == {k: BENCH_SERVING_LAUNCHES.get(k, 0) for k in counts}, line
+            assert line["samples"] >= 3 and line["quant"] == "int8_static_all", line
+            kernels |= set(BENCH_SERVING_LAUNCHES)
         if train:
             line = by_metric[bench.TRAIN_METRIC]
             assert line["launches"] == {k: BENCH_TRAIN_LAUNCHES.get(k, 0) for k in counts}, line
@@ -1971,6 +2283,7 @@ def main() -> int:
     phase_train_f32(cs, device)
     phase_train_reference(device)
     cli_launches = phase_cli(cs, device, smi_line)
+    chain = phase_serving_chain(cs, device, smi_line)
     units = phase_fused_units(device)
     hourglass = phase_hourglass(device)
     engine_launches = phase_engines(cs, device)
@@ -2031,6 +2344,8 @@ def main() -> int:
                               "cli_test": cli_launches["K1_test"],
                               "unit_engine": engine_launches["unit"][2],
                               "fused_engine": engine_launches["fused"][2],
+                              "artifact": chain["artifact"], "http": chain["http"],
+                              "int8_serve": chain["int8_serve"],
                               "bench": bench_launches["K1"]},
          "max_abs_err": main_fwd["max_abs_err"], "ms": fwd_row["call_ms"], **fwd_row,
          "plain_ms": main_fwd["plain_ms"], "library_ms": None,
@@ -2040,7 +2355,8 @@ def main() -> int:
                  "call's device time from a CUDA graph of calls; bound_share = bound/device",
          "design": "one block a row; the row's x, dm, label and mask in registers from one wave "
                    "of 16-byte loads, p = exp(z - zmax) / s once an element; rows above 4096 "
-                   "pixels streamed in three passes"},
+                   "pixels streamed in three passes; called through the registered operator "
+                   "torch.ops.pwr.softargmax_fwd, which exported programs carry"},
         {"name": "softargmax_bwd", "route": "cuda", "source": source.format("softargmax_bwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
          "launches": train_launches[1],

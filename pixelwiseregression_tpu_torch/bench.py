@@ -18,8 +18,15 @@ under its metric names, so that a line of the port sets beside its JAX line:
   model's forward (``--engine auto``: K1 a stage), the unit engine (K3 and
   K1) or the fused engine (K4 and its tail, and K1). Both engines force
   ``--norm_method instance``, as ``bench.py`` does;
+  ``--quant int8[_static][_all|_heads]`` runs the int8 model (its static
+  scales calibrated on the bench batch first) and tags the name
+  ``..._128_{quant}``, as ``bench.py`` does;
 * on the card, ``chip_health_matmul_tflops``: a chained bf16
   [256,2048]x[2048,2048] product replayed from a CUDA graph;
+* ``serving_fps_nyu_stage{S}_128_int8_batchnorm`` (``--serving``; on by
+  default on the card, off on the CPU): the model's forward with batch norm,
+  bf16 and ``int8_static_all`` calibrated on the bench batch, sampled in
+  turns with the headline (``bench.py``'s serving line);
 * ``train_fps_nyu_stage2_raw640x480`` (``--train``; on by default on the
   card, off on the CPU): the stage-2 train step on raw 480x640 NYU-shaped
   frames, augmentation on, AdamW, the same state stepped across samples,
@@ -43,7 +50,8 @@ device it ran on; one on the CPU is a rehearsal, not a device reading.
 Before a line is timed, one untimed call of it is counted: its kernels must
 have launched (K1 a stage with ``--decoder cuda``, K3 for the unit engine,
 K4 a stage for the fused one, K1 and K2 a stage a train step) and no other
-kernel, and on the CPU none. A line that fails prints ``{"metric",
+kernel, and on the CPU none; an int8 line must have called
+``torch._int_mm`` (``int_mm``, a library product, on either device). A line that fails prints ``{"metric",
 "error"}``, the others still run, and the exit code is 1. No line falls
 back to a plain version or to the CPU: ``--decoder torch`` runs the plain
 decoder, on both lines, only when asked for (``bench.py``'s train line
@@ -64,6 +72,7 @@ import numpy as np
 import torch
 
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig
+from pixelwiseregression_tpu_torch.models import layers
 from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
 from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
 from pixelwiseregression_tpu_torch.ops import cuda_fused, cuda_hourglass, cuda_lib, cuda_softargmax
@@ -81,6 +90,8 @@ HEALTH_M, HEALTH_K, HEALTH_CHAIN, HEALTH_GRAPH = 256, 2048, 2000, 100
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 HEALTH_METRIC = "chip_health_matmul_tflops"
 TRAIN_METRIC = "train_fps_nyu_stage2_raw640x480"
+QUANT_MODES = ("none", "int8", "int8_static", "int8_all", "int8_static_all", "int8_heads",
+               "int8_static_heads")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -99,6 +110,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--level", type=int, default=4)
     ap.add_argument("--norm_method", choices=("instance_anchored", "instance", "batch"),
                     default="instance_anchored")
+    ap.add_argument("--quant", choices=QUANT_MODES, default="none",
+                    help="int8 inference: the headline runs the int8 model (static modes "
+                         "calibrate on the bench batch first) and its name is tagged")
+    ap.add_argument("--serving", dest="serving", action="store_true", default=None,
+                    help="also time the int8 serving line (batch norm, bf16, int8_static_all) "
+                         "in turns with the headline (default: on the card, not on the CPU)")
+    ap.add_argument("--no_serving", dest="serving", action="store_false")
     ap.add_argument("--engine", choices=("auto", "unit", "fused"), default="auto",
                     help="auto: the model's forward; unit: K3 units (make_unit_fused_apply); "
                          "fused: K4 a stage (make_fused_apply)")
@@ -112,14 +130,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the card (default) or, to rehearse, the CPU with the plain versions")
     ap.add_argument("--seed", type=int, default=0,
                     help="weights, inputs, raw frames and augmentation draws")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.quant != "none" and args.engine != "auto":
+        ap.error("--quant runs the model's forward: it takes --engine auto")
+    return args
 
 
-def headline_metric(stages: int, norm_method: str) -> str:
+def headline_metric(stages: int, norm_method: str, quant: str = "none") -> str:
     """``bench.py``'s name of the inference line: the default (anchored)
-    norm carries the bare name, other norms are tagged."""
+    norm and no quant carry the bare name, others are tagged."""
+    qtag = "" if quant == "none" else f"_{quant}"
     ntag = "" if norm_method == "instance_anchored" else f"_{norm_method}norm"
-    return f"inference_fps_nyu_stage{stages}_128{ntag}"
+    return f"inference_fps_nyu_stage{stages}_128{qtag}{ntag}"
+
+
+def serving_metric(stages: int) -> str:
+    return f"serving_fps_nyu_stage{stages}_128_int8_batchnorm"
 
 
 def conv_flops(model, image_size: int = IMAGE) -> float:
@@ -166,16 +192,20 @@ def make_inputs(b: int, seed: int, device) -> list:
             for a in (img, label, mask)]
 
 
-def build_model(args, stages: int, device):
-    """The port's model at the flags' config, its weights drawn by
-    ``torch``'s default init from a generator seeded with ``--seed``
-    (the process's own generator state is left as it was)."""
+def build_model(args, stages: int, device, norm_method=None, dtype=None, quant=None):
+    """The port's model at the flags' config (``norm_method``, ``dtype`` and
+    ``quant`` override ``--norm_method``, ``--dtype`` and ``--quant``), its
+    weights drawn by ``torch``'s default init from a generator seeded with
+    ``--seed`` (the process's own generator state is left as it was)."""
+    quant = quant or getattr(args, "quant", "none")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = PixelwiseRegression(args.joints, stage=stages, features=args.features,
-                                    level=args.level, norm_method=args.norm_method,
+                                    level=args.level,
+                                    norm_method=norm_method or args.norm_method,
                                     heatmap_method="softmax", decoder=args.decoder,
-                                    dtype=DTYPES[args.dtype])
+                                    dtype=DTYPES[dtype or args.dtype],
+                                    quant=None if quant == "none" else quant)
     return model.to(device)
 
 
@@ -183,7 +213,8 @@ def read_launches() -> dict:
     """The kernels' launch counters."""
     cs, ch = cuda_softargmax, cuda_hourglass
     return {"K1": cs.LAUNCHES, "K2": cs.BWD_LAUNCHES, "K2_kernels": cs.BWD_KERNEL_LAUNCHES,
-            "K3": cuda_fused.LAUNCHES, "K4": ch.LAUNCHES, "K4_tail": ch.TAIL_LAUNCHES}
+            "K3": cuda_fused.LAUNCHES, "K4": ch.LAUNCHES, "K4_tail": ch.TAIL_LAUNCHES,
+            "int_mm": layers.INT_MM_CALLS}
 
 
 def counted_call(fn, device) -> dict:
@@ -198,9 +229,9 @@ def counted_call(fn, device) -> dict:
 def check_launches(got: dict, want: dict, device) -> None:
     """Raise unless each counter in ``want`` moved by its count (``None``:
     at least once; ``...``: any) and every other one not at all; on the CPU
-    none moves."""
+    no kernel's moves (``int_mm``, the library's int8 product, runs there too)."""
     if device.type == "cpu":
-        want = {}
+        want = {k: v for k, v in want.items() if k == "int_mm"}
 
     def fits(n, w):
         return w is ... or (n >= 1 if w is None else n == w)
@@ -241,15 +272,28 @@ def _estimate(sampler, rounds: int, min_positive: int, what: str):
     return seconds, quality
 
 
-def inference_line(args, device) -> dict:
-    """The headline: one forward of the flags' engine at ``--batch_size``."""
-    model = build_model(args, args.stages, device).eval()
+def inference_case(args, device, serving: bool = False) -> dict:
+    """One inference line's forward at ``--batch_size``, checked by one
+    counted call: the headline (the flags' engine, norm, dtype and quant) or,
+    with ``serving``, the serving line (the model's forward, batch norm,
+    bf16, ``int8_static_all``). A static int8 model is calibrated on the
+    bench batch first. Returns the line's ``sampler`` and its ``fields``
+    (``peak_mem_gib``: from building the model through its counted call)."""
+    _free(device)
+    if serving:
+        model = build_model(args, args.stages, device, norm_method="batch", dtype="bf16",
+                            quant="int8_static_all").eval()
+    else:
+        model = build_model(args, args.stages, device).eval()
     inputs = make_inputs(args.batch_size, args.seed, device)
+    if model.quant and "static" in model.quant:
+        model.calibrate(*inputs)
     k1 = args.stages if args.decoder == "cuda" else 0
-    if args.engine == "unit":
+    engine_name = "model" if serving or args.engine == "auto" else args.engine
+    if engine_name == "unit":
         engine = make_unit_fused_apply(model, min_res=args.min_res)
         want = {"K3": None, "K1": k1}
-    elif args.engine == "fused":
+    elif engine_name == "fused":
         engine = make_fused_apply(model)
         # the tail (K4's levels at 16x16 and below, one block a sample) runs
         # where K4's own rule says it fits: any count
@@ -258,23 +302,34 @@ def inference_line(args, device) -> dict:
         def engine(*xs):
             with torch.inference_mode():
                 return model(*xs)
-        want = {"K1": k1}
+        want = {"K1": k1, **({"int_mm": None} if model.quant else {})}
 
     def forward():
         return engine(*inputs)
 
     launches = counted_call(forward, device)
     check_launches(launches, want, device)
-    seconds, quality = _estimate(ab_common.make_sampler(forward, device, args.iters),
-                                 args.repeat, 3, "headline")
-    fps = args.batch_size / seconds
-    flops = conv_flops(model)
-    return {"value": round(fps, 1), "unit": "frames/sec/chip",
-            "engine": "model" if args.engine == "auto" else args.engine, **quality,
-            "gflop_per_frame": round(flops / 1e9, 4),
-            "mfu": _sig(fps * flops / ab_common.PEAK_FLOPS[args.dtype]),
-            **_device_fields(device), "decoder": args.decoder, "dtype": args.dtype,
-            "batch_size": args.batch_size, "iters": args.iters, "launches": launches}
+    dtype = "bf16" if serving else args.dtype
+    fields = {"engine": engine_name, "gflop_per_frame": round(conv_flops(model) / 1e9, 4),
+              "decoder": args.decoder, "dtype": dtype, "norm_method": model.norm_method,
+              "quant": model.quant or "none", "batch_size": args.batch_size,
+              "iters": args.iters, "launches": launches, **_device_fields(device)}
+    return {"sampler": ab_common.make_sampler(forward, device, args.iters), "fields": fields}
+
+
+def inference_record(case: dict, estimate, device) -> dict:
+    """A line's JSON record from its case and its ``(seconds, quality)``.
+    ``mfu`` is against the line's dtype's peak, for a model without int8
+    convs only."""
+    seconds, quality = estimate
+    if seconds is None:
+        raise RuntimeError(f"estimate failed: {quality['error']}")
+    f = case["fields"]
+    fps = f["batch_size"] / seconds
+    mfu = {}
+    if f["quant"] == "none":
+        mfu["mfu"] = _sig(fps * f["gflop_per_frame"] * 1e9 / ab_common.PEAK_FLOPS[f["dtype"]])
+    return {"value": round(fps, 1), "unit": "frames/sec/chip", **quality, **f, **mfu}
 
 
 def health_tflops(device) -> float:
@@ -383,7 +438,7 @@ def main(argv=None) -> int:
         print(f"# --engine {args.engine} measures the fused instance-norm kernels; forcing "
               f"--norm_method instance (was {args.norm_method})", file=sys.stderr)
         args.norm_method = "instance"
-    headline = headline_metric(args.stages, args.norm_method)
+    headline = headline_metric(args.stages, args.norm_method, args.quant)
     try:
         with contextlib.redirect_stdout(sys.stderr):
             device = ab_common.pick_device(args.device)
@@ -392,6 +447,8 @@ def main(argv=None) -> int:
         return 2
     if args.train is None:
         args.train = device.type == "cuda"
+    if args.serving is None:
+        args.serving = device.type == "cuda"
 
     ok = True
     if device.type == "cuda":
@@ -406,11 +463,35 @@ def main(argv=None) -> int:
                   flush=True)
             ok = False
         _free(device)
-    ok &= _emit(headline, inference_line, args, device)
+    # the headline and the serving line are sampled in turns: they share
+    # the card's state over the window
+    cases = {}
+    for metric, serving in ((headline, False), (serving_metric(args.stages), True)):
+        if serving and not args.serving:
+            continue
+        try:
+            cases[metric] = inference_case(args, device, serving)
+        except Exception as e:  # noqa: BLE001 -- a line that fails is reported; the others run
+            traceback.print_exc()
+            cases[metric] = e
+    built = [m for m, c in cases.items() if isinstance(c, dict)]
+    estimates = dict(zip(built, ab_common.interleaved_estimate(
+        [cases[m]["sampler"] for m in built], args.repeat, 3)))
+
+    def record(metric):
+        if isinstance(cases[metric], Exception):
+            raise cases[metric]
+        return inference_record(cases[metric], estimates[metric], device)
+
+    ok &= _emit(headline, record, headline)
     _free(device)
     if device.type == "cuda":
         ok &= _emit(HEALTH_METRIC, health_line, device)
         _free(device)
+    if args.serving:
+        ok &= _emit(serving_metric(args.stages), record, serving_metric(args.stages))
+    cases.clear()
+    _free(device)
     if args.train:
         ok &= _emit(TRAIN_METRIC, train_line, args, device)
         _free(device)

@@ -13,6 +13,10 @@ working, with these differences:
 * ``--profile DIR`` writes a ``torch.profiler`` trace of steps 3-6;
 * the TPU-only flags (``--compiler_opts``, ``--matmul_precision``,
   ``--no_compile_cache``) are not ported.
+
+The test CLIs' ``--quant int8[_static][_all|_heads]`` runs the int8 model
+(``models/layers.py``); a static mode calibrates on the first
+``--quant_calib_batches`` test batches. A quantized model refuses to train.
 """
 
 from __future__ import annotations
@@ -128,9 +132,13 @@ def make_test_parser(dataset_default: str = "MSRA", msra: bool = False):
     if not msra:
         p.add_argument("--process_mode", type=str, default="uvd", help="choose from uvd and bb")
     p.add_argument("--quant", type=str, default="none",
-                   help="int8 inference quantization: not ported yet (ROADMAP A12); "
-                        "only 'none' runs")
-    p.add_argument("--quant_calib_batches", type=int, default=4)
+                   help="int8 inference quantization, 'int8[_static][_all|_heads]': coverage "
+                        "stem+heads / +hourglass / heads only; '_static' uses per-channel "
+                        "scales calibrated over --quant_calib_batches. Same checkpoint "
+                        "serves every mode")
+    p.add_argument("--quant_calib_batches", type=int, default=4,
+                   help="batches used to calibrate static int8 activation scales (running "
+                        "per-channel |x| max)")
     p.add_argument("--gpu_id", type=str, default="0", help="the card: cuda:<gpu_id>")
     p.add_argument("--num_workers", type=int, default=9999)
     p.add_argument("--seed", type=str, default="final")
@@ -158,9 +166,7 @@ def resolve_device(args) -> torch.device:
 
 def model_kwargs_from_args(args, joints: int) -> dict:
     """``PixelwiseRegression``'s keyword arguments from the parsed flags."""
-    if getattr(args, "quant", "none") not in (None, "none"):
-        raise NotImplementedError(
-            f"--quant {args.quant}: the int8 serving path is not ported yet (ROADMAP A12)")
+    quant = getattr(args, "quant", "none")
     bf16 = getattr(args, "bf16", False) or getattr(args, "mixed_precision", False)
     return dict(
         joints=joints,
@@ -173,12 +179,13 @@ def model_kwargs_from_args(args, joints: int) -> dict:
         decoder=DECODERS[args.decoder],
         dtype=torch.bfloat16 if bf16 else torch.float32,
         remat=getattr(args, "remat", False),
+        quant=None if quant in (None, "none") else quant,
     )
 
 
 def make_model_param(model_kw: dict, label_size: int) -> dict:
     """The checkpoint's ``model_param``: the JAX package's keys and value types
-    (``dtype`` by name, ``quant`` None), which ``serve.Predictor`` reads."""
-    param = dict(model_kw, label_size=label_size, quant=None)
+    (``dtype`` by name), which ``serve.Predictor`` reads."""
+    param = dict(model_kw, label_size=label_size)
     param["dtype"] = str(model_kw["dtype"]).replace("torch.", "")
     return param

@@ -7,12 +7,15 @@ device, and writes ``Result/<dataset>_<suffix>.txt`` in the reference's
 format (HAND17: xyz and the challenge's submission rows). Prints frames/s.
 Reads a port ``.pt``, a reference ``.pt`` or a JAX ``.ckpt``.
 
-The int8 ``--quant`` modes (ROADMAP A12) and FullRegression (A13) are not
-ported yet and raise ``NotImplementedError``.
+``--quant`` runs the int8 model; a static mode first calibrates its scales
+on the first ``--quant_calib_batches`` test batches and refuses to run on
+none or on all-zero scales. FullRegression (ROADMAP A13) is not ported yet
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
@@ -28,6 +31,7 @@ from pixelwiseregression_tpu_torch.core.camera import recover_uvd
 from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import get_source
+from pixelwiseregression_tpu_torch.models.layers import quant_scales
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 from pixelwiseregression_tpu_torch.train.checkpoint import load_checkpoint
 from pixelwiseregression_tpu_torch.train.loop import model_inputs
@@ -85,6 +89,28 @@ def run_inference(args, dataset_name: str, fullregression: bool = False, subject
     loader = Loader(testset, args.batch_size, shuffle=False, drop_last=False,
                     num_workers=resolve_num_workers(args.num_workers),
                     on_error="skip" if getattr(args, "skip_bad_samples", False) else "raise")
+
+    quant = model_kw["quant"]
+    if quant and "static" in quant:
+        # calibrate the static int8 scales (running per-channel |x| max) on
+        # the first --quant_calib_batches batches, then freeze them
+        n_ran = 0
+        for batch in itertools.islice(loader, args.quant_calib_batches):
+            batch.pop("count")
+            batch.pop("decode_ok", None)
+            with torch.inference_mode():
+                data = preprocess_batch(to_device(batch, device), pp, test_only=True)
+                model.calibrate(*model_inputs(data))
+            n_ran += 1
+        # zero calibration batches would leave the scales at 0: every
+        # activation would saturate to +-127, silently
+        if n_ran == 0:
+            raise RuntimeError("int8 static quantization needs >= 1 calibration batch but none "
+                               "ran (--quant_calib_batches=0 or an empty dataset); refusing to "
+                               "run inference with uncalibrated scales")
+        if not all(float(s.max()) > 0 for s in quant_scales(model).values()):
+            raise RuntimeError("int8 static calibration produced zero scales: check the "
+                               "calibration data")
 
     print("running on test dataset ......")
     pre_uvd = []

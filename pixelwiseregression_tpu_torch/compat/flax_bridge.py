@@ -14,6 +14,11 @@ state dict under the reference torch names, which the port's
 * flax module names -> the reference's ``nn.Sequential`` indices, by the
   tables below (the inverse of the converter's).
 
+``quant_scales_from_flax`` maps the JAX int8 model's calibrated
+``quant_scales`` collection (``act_absmax_c`` of each static int8 conv) to
+the port's conv module names, for ``models.layers.load_quant_scales``: the
+port keeps those scales in non-persistent buffers, outside the state dict.
+
 A gradient tree maps like a params tree: ``state_dict_from_flax({"params":
 grads})`` names each gradient as the port names its parameter (the tests
 compare a JAX train step's gradients with the port's this way).
@@ -79,4 +84,22 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
 
     for collection in ("params", "batch_stats"):
         walk(variables.get(collection, {}), ())
+    return out
+
+
+def quant_scales_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``quant_scales`` collection of ``variables`` -> ``{port conv module
+    name: act_absmax_c [Cin]}``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], path: Tuple[str, ...]):
+        for name, node in tree.items():
+            if isinstance(node, Mapping):
+                walk(node, path + (name,))
+            elif name == "act_absmax_c" and path[-1] == "conv":
+                out[_module_name(path[:-1])] = torch.from_numpy(np.array(node, np.float32))
+            else:
+                raise KeyError(f"unknown quant_scales entry {'/'.join(path + (name,))}")
+
+    walk(variables.get("quant_scales", {}), ())
     return out

@@ -111,6 +111,8 @@ def _check_supported(model, name):
     norms = [m for m in model.modules() if isinstance(m, InstanceNorm)]
     if model.norm_method != "instance" or any(m.method != "instance" for m in norms):
         raise ValueError(f"{name} supports instance norm only, got {model.norm_method}")
+    if model.quant:
+        raise ValueError(f"{name} does not support quantized models, got {model.quant}")
 
 
 def _tf32_off():

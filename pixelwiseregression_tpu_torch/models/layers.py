@@ -5,11 +5,13 @@ NCHW throughout. Params are f32; a module runs in the dtype of its input
 conv casts its weight and bias to the activation dtype, a norm takes its
 statistics in f32 and casts y back.
 
-The int8 conv comes with a later part of the port.
+``Conv(quant="int8" | "int8_static")`` is the int8 inference conv (the JAX
+package's ``_Int8Conv2D``): int8 codes, an int32 product, an f32 epilogue.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -17,15 +19,121 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# torch._int_mm calls made by the int8 convs (live calls; an exported
+# program runs the product as an operator of its own and is not counted)
+INT_MM_CALLS = 0
+# rows of zeros below an im2col operand: cuBLAS's int8 product on the card
+# needs more than 16 rows, and a fixed pad keeps a traced batch symbolic
+_ROW_PAD = 16
+
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _div127(t):
+    """``t / 127`` rounded as a true division on every device: divided by a
+    Python number, a CUDA tensor is multiplied by the number's reciprocal
+    instead, which can round differently (and then the codes and scales
+    part from the CPU's and the JAX package's)."""
+    return t / t.new_full((), 127.0)
+
+
+def int8_codes(x, weight, act_absmax_c=None):
+    """The int8 conv's codes and scales (JAX ``_Int8Conv2D``, op for op).
+
+    ``x`` ``[B, Cin, H, W]`` any float dtype, ``weight`` ``[Co, Cin, k, k]``
+    f32. With ``act_absmax_c`` ``[Cin]`` (static): ``s_a = act_absmax_c /
+    127`` per input channel, folded into the weight before its
+    quantization, ``w_eff = weight * s_a``; without (dynamic): ``s_a`` is
+    each sample's ``|x|max / 127``. The weight's scale is per output
+    channel, ``s_w = |w_eff|max / 127``; every scale is at least 1e-12.
+    ``round`` is half-to-even in both frameworks; x's codes clip to
+    [-127, 127].
+
+    Returns ``(x_q, w_q, s_out)``: int8 ``[B, Cin, H, W]``, int8
+    ``[Co, Cin, k, k]`` and the output scale, ``s_w`` ``[Co]`` (static) or
+    ``s_a * s_w`` ``[B, 1, Co]`` (dynamic).
+    """
+    x32 = x.to(torch.float32)
+    if act_absmax_c is not None:
+        s_a = torch.clamp_min(_div127(act_absmax_c), 1e-12)
+        w_eff = weight * s_a[None, :, None, None]
+        s_a = s_a[None, :, None, None]
+    else:
+        s_a = torch.clamp_min(_div127(x32.abs().amax(dim=(1, 2, 3), keepdim=True)), 1e-12)
+        w_eff = weight
+    s_w = torch.clamp_min(_div127(w_eff.abs().amax(dim=(1, 2, 3))), 1e-12)
+    w_q = torch.round(w_eff / s_w[:, None, None, None]).to(torch.int8)
+    x_q = torch.clamp(torch.round(x32 / s_a), -127, 127).to(torch.int8)
+    s_out = s_w if act_absmax_c is not None else s_a.reshape(-1, 1, 1) * s_w
+    return x_q, w_q, s_out
+
+
+def int8_gemm(x_q, w_q, stride: int = 1):
+    """The int32 accumulators of the conv of int8 codes, with ``k // 2``
+    zero padding: ``[B, Ho, Wo, Co]``.
+
+    An im2col in int8 (a strided view of the padded NHWC codes, copied once
+    into ``[B*Ho*Wo, Cin*k*k]``) times the weight's codes by
+    ``torch._int_mm`` (cuBLAS's int8 tensor-core product on the card). The
+    card's product needs K and N multiples of 8 and M above 16, so input
+    channels and output channels pad with zero codes, and ``_ROW_PAD`` zero
+    rows follow the operand; none of them changes a sum. The CPU runs the
+    same steps.
+    """
+    global INT_MM_CALLS
+    b, cin, _, _ = x_q.shape
+    co, _, k, _ = w_q.shape
+    cin_p, co_p, p = _ceil8(cin), _ceil8(co), k // 2
+    xp = F.pad(x_q.permute(0, 2, 3, 1), (0, cin_p - cin, p, p, p, p))
+    cols = xp.unfold(1, k, stride).unfold(2, k, stride)  # [B, Ho, Wo, Cin_p, k, k]
+    ho, wo = cols.shape[1], cols.shape[2]
+    m = b * ho * wo
+    a = x_q.new_empty((m + _ROW_PAD, cin_p * k * k))
+    a[:m].view(b, ho, wo, cin_p, k, k).copy_(cols)
+    a[m:].zero_()
+    wk = F.pad(w_q, (0, 0, 0, 0, 0, cin_p - cin, 0, co_p - co)).reshape(co_p, cin_p * k * k)
+    acc = torch._int_mm(a, wk.t())
+    INT_MM_CALLS += 1
+    return acc[:m, :co].reshape(b, ho, wo, co)
+
+
+def int8_conv2d(x, weight, bias, stride: int = 1, act_absmax_c=None):
+    """The int8 conv: ``int32 product * s_out + bias`` in f32, cast to x's
+    dtype, NCHW (the JAX package's ``y.astype(f32) * s_out + bias``)."""
+    x_q, w_q, s_out = int8_codes(x, weight, act_absmax_c)
+    acc = int8_gemm(x_q, w_q, stride)
+    b, ho, wo, co = acc.shape
+    y = acc.reshape(b, ho * wo, co).to(torch.float32) * s_out + bias
+    return y.to(x.dtype).reshape(b, ho, wo, co).permute(0, 3, 1, 2).contiguous()
+
+
 class Conv(nn.Conv2d):
     """2-D conv with torch-style explicit ``k//2`` padding, xavier-normal
     weights and torch-uniform bias. Its weight and bias are cast to the
-    input's dtype."""
+    input's dtype.
+
+    ``quant`` (inference only): ``"int8"`` runs ``int8_conv2d`` with
+    per-sample scales, ``"int8_static"`` with the calibrated per-input-channel
+    ``act_absmax_c`` (the JAX package's ``quant_scales`` collection): a
+    non-persistent buffer, so the state dict is the unquantized model's. A
+    forward inside ``calibrating(model)`` first raises ``act_absmax_c`` to
+    the running ``|x|max`` of each input channel; a static conv that was
+    never calibrated (nor given scales by ``load_quant_scales``) raises.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1):
+                 stride: int = 1, quant: str | None = None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=kernel_size // 2)
+        if quant not in (None, "int8", "int8_static"):
+            raise ValueError(f"unknown quant mode: {quant}")
+        self.quant = quant
+        self.calibrating = False
+        self.calibrated = False
+        if quant == "int8_static":
+            self.register_buffer("act_absmax_c", torch.zeros(in_channels), persistent=False)
 
     def reset_parameters(self):
         nn.init.xavier_normal_(self.weight)
@@ -34,8 +142,62 @@ class Conv(nn.Conv2d):
         nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        self.stride, self.padding)
+        if self.quant is None:
+            return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.stride, self.padding)
+        scales = None
+        if self.quant == "int8_static":
+            if self.calibrating:
+                with torch.no_grad():
+                    self.act_absmax_c.copy_(torch.maximum(
+                        self.act_absmax_c, x.to(torch.float32).abs().amax(dim=(0, 2, 3))))
+                self.calibrated = True
+            elif not self.calibrated:
+                raise RuntimeError("int8_static conv without calibrated quant_scales: run "
+                                   "forwards inside calibrating(model) first, or "
+                                   "load_quant_scales")
+            scales = self.act_absmax_c
+        return int8_conv2d(x, self.weight, self.bias, self.stride[0], scales)
+
+
+def _static_convs(model: nn.Module) -> dict:
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, Conv) and m.quant == "int8_static"}
+
+
+@contextlib.contextmanager
+def calibrating(model: nn.Module):
+    """Forwards of ``model`` inside raise its static int8 convs' scales to the
+    running per-input-channel ``|x|max`` (JAX: ``apply(...,
+    mutable=["quant_scales"])``); each such forward then computes with the
+    raised scales, as JAX's does."""
+    convs = list(_static_convs(model).values())
+    for m in convs:
+        m.calibrating = True
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.calibrating = False
+
+
+def quant_scales(model: nn.Module) -> dict:
+    """The static int8 convs' ``act_absmax_c`` by module name."""
+    return {name: m.act_absmax_c for name, m in _static_convs(model).items()}
+
+
+def load_quant_scales(model: nn.Module, scales) -> None:
+    """Set every static int8 conv's ``act_absmax_c`` from ``{module name:
+    [Cin]}`` (``compat.flax_bridge.quant_scales_from_flax`` maps the JAX
+    package's calibrated collection) and mark it calibrated."""
+    convs = _static_convs(model)
+    if set(scales) != set(convs):
+        raise KeyError(f"scales for {sorted(set(scales) ^ set(convs))} do not match the "
+                       "model's static int8 convs")
+    with torch.no_grad():
+        for name, m in convs.items():
+            m.act_absmax_c.copy_(torch.as_tensor(scales[name]))
+            m.calibrated = True
 
 
 class _InstanceNormFn(torch.autograd.Function):

@@ -12,8 +12,13 @@ natively and ``compat/flax_bridge.py`` maps the JAX package's params onto it.
 statistics, the anchored instance norms update their anchors, and the
 kernel decoder takes the f32 training boundary. ``remat=True`` is the JAX
 package's ``nn.remat(PredictionBlock)``: each stage runs under
-``torch.utils.checkpoint`` and is recomputed in the backward. The int8
-quantized convs and the paired heads come with later parts of the port.
+``torch.utils.checkpoint`` and is recomputed in the backward.
+
+``quant`` (``int8[_static][_all|_heads]``, inference only) puts int8 convs
+(``layers.Conv(quant=...)``) where the JAX package does (``parse_quant``);
+the state dict stays the unquantized model's. ``calibrate`` runs a forward
+that raises the static modes' scales. The paired heads come with a later
+part of the port.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pixelwiseregression_tpu_torch.models.layers import (
     Conv,
+    calibrating,
     make_norm,
     max_pool_2x2,
     upsample_nearest_2x_add,
@@ -35,17 +41,37 @@ from pixelwiseregression_tpu_torch.ops import cuda_softargmax
 from pixelwiseregression_tpu_torch.ops.softargmax import soft_argmax_decode_flat
 
 
+def parse_quant(quant: str | None):
+    """A quant mode ``int8[_static][_all|_heads]`` -> the Conv modes of
+    (stem, heads, hourglass), as the JAX package's ``parse_quant``: the
+    default covers the stem (not its first conv) and the heads' conv_0..2,
+    ``_all`` adds the hourglass ResBlocks, ``_heads`` is the heads alone."""
+    if quant in (None, "none"):
+        return None, None, None
+    m = quant
+    if m.endswith("_all"):
+        cov, m = "all", m[: -len("_all")]
+    elif m.endswith("_heads"):
+        cov, m = "heads", m[: -len("_heads")]
+    else:
+        cov = "default"
+    if m not in ("int8", "int8_static"):
+        raise ValueError(f"unknown quant mode: {quant}")
+    return (m if cov in ("default", "all") else None), m, (m if cov == "all" else None)
+
+
 class ResBlock(nn.Module):
     """Pre-activation bottleneck residual: [norm, relu, conv1x1, norm, relu,
     convkxk, norm, relu, conv1x1] + skip."""
 
-    def __init__(self, features: int, kernel_size: int = 3, norm_method: str = "instance"):
+    def __init__(self, features: int, kernel_size: int = 3, norm_method: str = "instance",
+                 quant: str | None = None):
         super().__init__()
         f, h = features, features // 2
         self.conv = nn.Sequential(
-            make_norm(norm_method, f), nn.ReLU(), Conv(f, h, 1),
-            make_norm(norm_method, h), nn.ReLU(), Conv(h, h, kernel_size),
-            make_norm(norm_method, h), nn.ReLU(), Conv(h, f, 1),
+            make_norm(norm_method, f), nn.ReLU(), Conv(f, h, 1, quant=quant),
+            make_norm(norm_method, h), nn.ReLU(), Conv(h, h, kernel_size, quant=quant),
+            make_norm(norm_method, h), nn.ReLU(), Conv(h, f, 1, quant=quant),
         )
 
     def forward(self, x):
@@ -55,15 +81,16 @@ class ResBlock(nn.Module):
 class Hourglass(nn.Module):
     """Recursive encoder/decoder with a skip at every level."""
 
-    def __init__(self, features: int, level: int = 4, norm_method: str = "instance"):
+    def __init__(self, features: int, level: int = 4, norm_method: str = "instance",
+                 quant: str | None = None):
         super().__init__()
         # the reference hourglass always uses 3x3 convs, whatever --filter_size is
-        self.input_conv = ResBlock(features, 3, norm_method)
+        self.input_conv = ResBlock(features, 3, norm_method, quant)
         if level > 0:
-            self.inner = Hourglass(features, level - 1, norm_method)
+            self.inner = Hourglass(features, level - 1, norm_method, quant)
         else:
-            self.inner = ResBlock(features, 3, norm_method)
-        self.output_conv = ResBlock(features, 3, norm_method)
+            self.inner = ResBlock(features, 3, norm_method, quant)
+        self.output_conv = ResBlock(features, 3, norm_method, quant)
 
     def forward(self, x):
         x = self.input_conv(x)
@@ -73,15 +100,17 @@ class Hourglass(nn.Module):
 
 class _Head(nn.Module):
     """4-conv regression head: [conv, norm, relu] * 3 + [conv]. The plane
-    head also holds the learned per-joint softmax temperature ``w [J, 1]``."""
+    head also holds the learned per-joint softmax temperature ``w [J, 1]``.
+    ``quant`` applies to the first three convs; the last one feeds the
+    softmax's logits and stays full precision, as in the JAX package."""
 
     def __init__(self, features: int, out_features: int, kernel_size: int,
-                 norm_method: str, temperature: bool):
+                 norm_method: str, temperature: bool, quant: str | None = None):
         super().__init__()
         layers = []
         for _ in range(3):
-            layers += [Conv(features, features, kernel_size), make_norm(norm_method, features),
-                       nn.ReLU()]
+            layers += [Conv(features, features, kernel_size, quant=quant),
+                       make_norm(norm_method, features), nn.ReLU()]
         self.conv = nn.Sequential(*layers, Conv(features, out_features, kernel_size))
         if temperature:
             self.w = nn.Parameter(torch.ones(out_features, 1))
@@ -104,7 +133,8 @@ class PredictionBlock(nn.Module):
 
     def __init__(self, in_channels: int, joints: int, features: int = 256, level: int = 4,
                  kernel_size: int = 3, norm_method: str = "instance",
-                 heatmap_method: str = "softmax", decoder: str = "torch"):
+                 heatmap_method: str = "softmax", decoder: str = "torch",
+                 quant: str | None = None):
         super().__init__()
         if decoder not in ("torch", "cuda"):
             raise ValueError(f"unknown decoder: {decoder}")
@@ -112,12 +142,15 @@ class PredictionBlock(nn.Module):
             raise ValueError(f"unknown heatmap method: {heatmap_method}")
         self.heatmap_method = heatmap_method
         self.decoder = decoder
+        _, head_quant, hg_quant = parse_quant(quant)
+        # the projection stays full precision: from stage 2 on it reads the
+        # softmax heatmaps (a tiny dynamic range), and it is cheap
         self.conv = Conv(in_channels, features, 1)
-        self.hourglass = Hourglass(features, level, norm_method)
+        self.hourglass = Hourglass(features, level, norm_method, hg_quant)
         self.plane_regression = _Head(features, joints, kernel_size, norm_method,
-                                      temperature=heatmap_method == "softmax")
+                                      temperature=heatmap_method == "softmax", quant=head_quant)
         self.depth_regression = _Head(features, joints, kernel_size, norm_method,
-                                      temperature=False)
+                                      temperature=False, quant=head_quant)
 
     def forward(self, x, label_img, mask):
         f = self.hourglass(self.conv(x))
@@ -192,37 +225,55 @@ class PixelwiseRegression(nn.Module):
     the backward instead of kept (``torch.utils.checkpoint``, non-reentrant);
     the stage's forward, the decoder's K1 included, then runs twice a step,
     and its norms' buffers still move once (``_buffer_contexts``).
+
+    ``quant`` (see ``parse_quant``) is for inference: a quantized model
+    refuses a train-mode forward.
     """
 
     def __init__(self, joints: int, stage: int = 2, features: int = 256, level: int = 4,
                  kernel_size: int = 3, norm_method: str = "instance",
                  heatmap_method: str = "softmax", decoder: str = "torch",
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 quant: str | None = None):
         super().__init__()
         self.dtype = dtype
         self.remat = remat
         self.level = level
         self.kernel_size = kernel_size
         self.norm_method = norm_method
+        self.quant = None if quant in (None, "none") else quant
+        stem_quant, _, _ = parse_quant(self.quant)
         # stem: 1 -> 32, feature-doubling kxk convs up to `features`, then a
-        # stride-2 conv halving the spatial size
+        # stride-2 conv halving the spatial size. The first conv reads the
+        # one-channel image and stays full precision
         widths = [32]
         while widths[-1] < features:
             widths.append(min(2 * widths[-1], features))
         layers, cin = [], 1
-        for w in widths:
-            layers += [Conv(cin, w, kernel_size), make_norm(norm_method, w), nn.ReLU()]
+        for i, w in enumerate(widths):
+            layers += [Conv(cin, w, kernel_size, quant=stem_quant if i > 0 else None),
+                       make_norm(norm_method, w), nn.ReLU()]
             cin = w
-        layers += [Conv(cin, features, kernel_size, stride=2),
+        layers += [Conv(cin, features, kernel_size, stride=2, quant=stem_quant),
                    make_norm(norm_method, features), nn.ReLU()]
         self.conv = nn.Sequential(*layers)
         self.stages = nn.ModuleList(
             PredictionBlock(features if s == 0 else 2 * joints + 1, joints, features, level,
-                            kernel_size, norm_method, heatmap_method, decoder)
+                            kernel_size, norm_method, heatmap_method, decoder, self.quant)
             for s in range(stage)
         )
 
+    def calibrate(self, img, label_img, mask):
+        """One inference forward that raises the static int8 convs' scales
+        first (JAX: ``apply(..., mutable=["quant_scales"])``); returns its
+        results."""
+        with calibrating(self), torch.no_grad():
+            return self(img, label_img, mask)
+
     def forward(self, img, label_img, mask):
+        if self.training and self.quant:
+            raise ValueError("quant is an inference-only path (round() kills gradients); "
+                             "train with quant=None and quantize at serving time")
         label_img = label_img.to(self.dtype)
         mask = mask.to(self.dtype)
         f = self.conv(img.to(self.dtype))

@@ -16,14 +16,20 @@ Both are built with the port's other kernels into one library by
 ``ops/cuda_lib.py`` the first time a kernel is needed, and bound with
 ctypes. A build or load failure raises.
 
-Wrappers, and what they do with each tensor:
+The forward is a registered operator, ``torch.ops.pwr.softargmax_fwd``
+(``torch.library.custom_op``), so that ``torch.export`` keeps K1 as one node
+of an exported program (``serve_artifact.py``) instead of tracing into the
+ctypes call, which it cannot. Every forward, live or exported, goes through
+that operator. Wrappers, and what they do with each tensor:
 
 * CPU tensors go to the plain PyTorch versions: ``ops/softargmax.py`` for
-  the forward, autograd through it for the backward;
+  the forward (the operator's CPU implementation), autograd through it for
+  the backward;
 * CUDA tensors launch the kernels or raise; there is no fallback;
 * when autograd needs the decoder's gradients, ``decode_flat`` runs through
-  a ``torch.autograd.Function`` whose forward is K1 and whose backward is K2.
-  Its maps must be f32, as the JAX package's custom VJP takes them.
+  a ``torch.autograd.Function`` whose forward is the operator (K1) and whose
+  backward is K2. Its maps must be f32, as the JAX package's custom VJP
+  takes them.
 
 ``LAUNCHES`` (K1) and ``BWD_LAUNCHES`` (K2) count the calls that launched
 the kernels, so a run can show that its main path went through them;
@@ -107,12 +113,31 @@ def _check(x, dm, label, mask, w, h, wd, hm_dtype):
             raise ValueError("kernel needs contiguous, 16-byte aligned tensors")
 
 
-def _forward(x, dm, label, mask, w, h, wd, hm_dtype):
-    """K1, or its plain version for CPU tensors."""
+@torch.library.custom_op("pwr::softargmax_fwd", mutates_args=())
+def softargmax_fwd(x: torch.Tensor, dm: torch.Tensor, label: torch.Tensor, mask: torch.Tensor,
+                   w: torch.Tensor, h: int, wd: int,
+                   hm_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's forward as a registered operator, ``pwr::softargmax_fwd``:
+    K1 for CUDA tensors (``_softargmax_fwd_cuda``), and this, the plain
+    version, for CPU tensors. Returns heatmaps ``[B, J, H*W]`` in
+    ``hm_dtype`` and uvd ``[B, J, 3]`` f32.
+
+    Being an operator, the call is one node of a traced program:
+    ``torch.export`` keeps it as ``torch.ops.pwr.softargmax_fwd`` (its
+    shapes from ``_softargmax_fwd_fake``), and the exported program
+    dispatches it by the device of its inputs when it runs, so a program
+    exported on the CPU and moved to the card launches K1 there.
+    """
+    cuda_lib.on_cpu("the decoder", [x, dm, label, mask, w])
+    hm, uvd = soft_argmax_decode_flat(x, dm, label, mask, w, h, wd)
+    return hm.to(hm_dtype), uvd
+
+
+@softargmax_fwd.register_kernel("cuda")
+def _softargmax_fwd_cuda(x, dm, label, mask, w, h, wd, hm_dtype):
+    """K1: checks the tensors, launches, raises on a launch error."""
     global LAUNCHES
-    if cuda_lib.on_cpu("the decoder", [x, dm, label, mask, w]):
-        hm, uvd = soft_argmax_decode_flat(x, dm, label, mask, w, h, wd)
-        return hm.to(hm_dtype), uvd
+    cuda_lib.on_cpu("the decoder", [x, dm, label, mask, w])
     _check(x, dm, label, mask, w, h, wd, hm_dtype)
     b, j, hw = x.shape
     hm = torch.empty((b, j, hw), dtype=hm_dtype, device=x.device)
@@ -125,6 +150,12 @@ def _forward(x, dm, label, mask, w, h, wd, hm_dtype):
     cuda_lib.check(rc, "softargmax_fwd")
     LAUNCHES += 1
     return hm, uvd
+
+
+@softargmax_fwd.register_fake
+def _softargmax_fwd_fake(x, dm, label, mask, w, h, wd, hm_dtype):
+    b, j, hw = x.shape
+    return x.new_empty((b, j, hw), dtype=hm_dtype), x.new_empty((b, j, 3), dtype=torch.float32)
 
 
 def decode_flat_backward(x, dm, label, mask, w, g_hm, g_uvd, h: int, wd: int,
@@ -179,7 +210,7 @@ class _Decode(torch.autograd.Function):
     def forward(ctx, x, dm, label, mask, w, h, wd):
         ctx.save_for_backward(x, dm, label, mask, w)
         ctx.hw = (h, wd)
-        return _forward(x, dm, label, mask, w, h, wd, torch.float32)
+        return softargmax_fwd(x, dm, label, mask, w, h, wd, torch.float32)
 
     @staticmethod
     def backward(ctx, g_hm, g_uvd):
@@ -202,7 +233,7 @@ def decode_flat(x, dm, label, mask, w, h: int, wd: int, hm_dtype=torch.float32):
             raise TypeError(f"the differentiable decoder takes and returns f32 maps, got "
                             f"{x.dtype} -> {hm_dtype}")
         return _Decode.apply(x, dm, label, mask, w, h, wd)
-    return _forward(x, dm, label, mask, w, h, wd, hm_dtype)
+    return softargmax_fwd(x, dm, label, mask, w, h, wd, hm_dtype)
 
 
 def soft_argmax_decode_cuda(logits, depthmaps, label_img, mask, w,

@@ -264,7 +264,8 @@ def test_jax_ckpt_serves_through_predictor_without_jax(tmp_path, jax_variables):
     got = Predictor.from_checkpoint(path, "NYU", "cpu", **kw).predict(frames, coms)["uvd"]
     ref = Predictor.from_state_dict(
         state_dict_from_flax({"params": j["params"], "batch_stats": j["batch_stats"]}),
-        "NYU", "cpu", stages=2, features=16, level=1, label_size=16, **kw)
+        "NYU", "cpu", stages=2, features=16, level=1, label_size=16,
+        norm_method="instance_anchored", **kw)
     np.testing.assert_array_equal(got, ref.predict(frames, coms)["uvd"])
     np.save(tmp_path / "in.npy", frames)
     script = (
@@ -423,8 +424,9 @@ def test_parsers_keep_the_jax_flags_and_defaults(kind, msra):
 
 def test_model_kwargs_decoder_names_and_unported_options(monkeypatch):
     """pallas/xla name the cuda/torch decoders; --mixed_precision is bf16;
-    --quant, FullRegression, multi-process training and --device cuda
-    without a card raise, naming what is missing."""
+    --quant reaches the model, which refuses to train; FullRegression,
+    multi-process training and --device cuda without a card raise, naming
+    what is missing."""
     args = tcommon.make_train_parser(msra=True).parse_args(
         ["--decoder", "xla", "--mixed_precision", "--remat", "--filter_size", "5"])
     kw = tcommon.model_kwargs_from_args(args, 21)
@@ -439,8 +441,10 @@ def test_model_kwargs_decoder_names_and_unported_options(monkeypatch):
         assert tcommon.model_kwargs_from_args(args, 21)["decoder"] == "cuda"
 
     targs = tcommon.make_test_parser(msra=True).parse_args(["--quant", "int8_static"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcommon.model_kwargs_from_args(targs, 21)
+    qkw = tcommon.model_kwargs_from_args(targs, 21)
+    assert qkw["quant"] == "int8_static" and kw["quant"] is None
+    with pytest.raises(ValueError, match="inference-only"):
+        PortModel(**qkw).train()(*(torch.zeros(1, 1, s, s) for s in (128, 64, 64)))
     with pytest.raises(NotImplementedError, match="A13"):
         port_training(args, "MSRA", fullregression=True)
     with pytest.raises(NotImplementedError, match="A13"):

@@ -2,9 +2,12 @@
 (K1) and backward (K2) kernels, the fused conv + instance-norm unit (K3),
 the whole hourglass (K4), the norm+relu backward (K5) and the ablation
 pieces (K6) vs their plain PyTorch versions, the wrappers' checks, the
-Predictor through K1, a train step through K1 and K2, both inference
-engines through K3, K4 and K1, and the CLIs: Loader batches through pinned
-memory, run_training through K1 and K2 and run_inference through K1.
+Predictor through K1 (and K1 as the operator ``torch.ops.pwr.softargmax_fwd``,
+which a serving artifact exported on the CPU calls on the card), the int8
+conv's product on the card vs the CPU, a train step through K1 and K2,
+both inference engines through K3, K4 and K1, and the CLIs: Loader batches
+through pinned memory, run_training through K1 and K2 and run_inference
+through K1.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -250,6 +253,78 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
         tcuda.decode_flat_backward(*bf, wt, g_hm, torch.zeros(2, 4, 3, device=device), 8, 8)
 
 
+def test_decoder_operator_launches_k1(device):
+    """``torch.ops.pwr.softargmax_fwd`` on CUDA tensors is K1: one counted
+    launch a call, the plain version's answers (f32 hm rtol 1e-5 atol 1e-8,
+    uvd rtol 1e-5 atol 1e-6), and the wrapper's checks (a mixed-device call
+    raises)."""
+    x, dm, label, mask, wt = _rows(device, torch.float32, 8, 14, 64, 64)
+    before = tcuda.LAUNCHES
+    hm_k, uvd_k = torch.ops.pwr.softargmax_fwd(x, dm, label, mask, wt, 64, 64, torch.float32)
+    torch.cuda.synchronize()
+    assert tcuda.LAUNCHES == before + 1
+    hm_p, uvd_p = tsa.soft_argmax_decode_flat(x, dm, label, mask, wt, 64, 64)
+    torch.testing.assert_close(hm_k, hm_p, rtol=1e-5, atol=1e-8)
+    torch.testing.assert_close(uvd_k, uvd_p, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="one device"):
+        torch.ops.pwr.softargmax_fwd(x, dm, label, mask, wt.cpu(), 64, 64, torch.float32)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("b,cin,cout,k,stride,side", [(2, 128, 128, 3, 1, 64),
+                                                     (2, 32, 64, 3, 2, 128),
+                                                     (3, 5, 3, 3, 1, 9), (1, 64, 64, 3, 1, 2)])
+def test_int8_conv_card_matches_cpu(device, static, b, cin, cout, k, stride, side):
+    """The int8 conv on the card (cuBLAS's int8 product) vs the CPU on the
+    same inputs: codes and int32 accumulators bit-exact (channels padded to
+    the product's multiples of 8, fewer than 17 rows padded), the f32
+    output within 1 ulp."""
+    from pixelwiseregression_tpu_torch.models import layers
+
+    gen = torch.Generator().manual_seed(cin + side)
+    x = torch.randn(b, cin, side, side, generator=gen)
+    w = torch.randn(cout, cin, k, k, generator=gen) * 0.1
+    bias = torch.randn(cout, generator=gen)
+    scales = x.abs().amax(dim=(0, 2, 3)) * 0.9 if static else None
+    x_q, w_q, _ = layers.int8_codes(x, w, scales)
+    card = layers.int8_codes(x.to(device), w.to(device),
+                             None if scales is None else scales.to(device))
+    assert torch.equal(card[0].cpu(), x_q) and torch.equal(card[1].cpu(), w_q)
+    before = layers.INT_MM_CALLS
+    assert torch.equal(layers.int8_gemm(card[0], card[1], stride).cpu(),
+                       layers.int8_gemm(x_q, w_q, stride))
+    assert layers.INT_MM_CALLS == before + 2
+    want = layers.int8_conv2d(x, w, bias, stride, scales)
+    got = layers.int8_conv2d(x.to(device), w.to(device), bias.to(device), stride,
+                             None if scales is None else scales.to(device)).cpu()
+    ulp = torch.from_numpy(np.spacing(want.abs().numpy()))
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+def test_artifact_exported_on_the_cpu_runs_k1_on_the_card(device, tmp_path):
+    """A small f32 artifact exported on the CPU and loaded onto the card
+    (``move_to_device_pass``) launches K1 once a stage a request and answers
+    as a live Predictor on the card does (within 1e-4 px/mm)."""
+    from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact, export_artifact
+
+    spec = SPECS["MSRA"]
+    torch.manual_seed(2)
+    state = PixelwiseRegression(21, stage=2, features=16, level=2).state_dict()
+    kw = dict(batch_size=4, stages=2, features=16, level=2, label_size=32)
+    path = str(tmp_path / "small.pwrsrv")
+    assert export_artifact(Predictor.from_state_dict(state, "MSRA", "cpu", **kw),
+                           path)["device"] == "cpu"
+    art = ServingArtifact.load(path, device)
+    raw = make_synthetic_raw_batch(3, 240, 320, 21, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=125.0, com_z=400.0, seed=6)
+    before = tcuda.LAUNCHES
+    got = art.predict(raw["frame"], raw["com"])
+    torch.cuda.synchronize()
+    assert tcuda.LAUNCHES == before + 2
+    want = Predictor.from_state_dict(state, "MSRA", device, **kw).predict(raw["frame"], raw["com"])
+    np.testing.assert_allclose(got["uvd"], want["uvd"], rtol=0, atol=1e-4)
+
+
 def test_predictor_through_the_kernel_matches_plain_decoder(device):
     """A small bf16 Predictor on the card: decoder='cuda' launches the kernel
     once per stage and agrees with decoder='torch' within 1e-3 normalized
@@ -259,7 +334,7 @@ def test_predictor_through_the_kernel_matches_plain_decoder(device):
     state = PixelwiseRegression(14, stage=2, features=32, level=2,
                                 norm_method="instance_anchored").state_dict()
     kw = dict(batch_size=8, stages=2, features=32, level=2, label_size=64,
-              dtype=torch.bfloat16)
+              norm_method="instance_anchored", dtype=torch.bfloat16)
     preds = {d: Predictor.from_state_dict(state, "NYU", device, decoder=d, **kw)
              for d in ("cuda", "torch")}
     raw = make_synthetic_raw_batch(5, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,

@@ -552,6 +552,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     pkg = "pixelwiseregression_tpu_torch."
     new = {"cli", "cli.common", "cli.check_dataset", "cli.train_main", "cli.test_main",
            "cli.train", "cli.train_msra", "cli.test", "cli.test_msra", "native",
-           "train.checkpoint", "utils.seeding", "utils.viz", "data.sources", "data.loader"}
+           "train.checkpoint", "utils.seeding", "utils.viz", "data.sources", "data.loader",
+           "serve_artifact", "serve_http", "tools.export_model"}
     assert {pkg + m for m in new} <= mods, sorted({pkg + m for m in new} - mods)
-    assert len(mods) >= 49  # 39 modules + 10 subpackages
+    assert len(mods) >= 52  # 42 modules + 10 subpackages
