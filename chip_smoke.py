@@ -105,6 +105,26 @@ head shape card vs CPU (int32 accumulators bit-exact) and timed beside
 cuDNN's bf16 conv, and a small f32 batch-norm int8_static_all model card
 vs CPU.
 
+Then the last of the JAX package's modules, on one MSRA fixture:
+phase_fullreg runs the FullRegression family through its entry points at
+full width (train_fullregression's run_training bf16 b32 2 epochs,
+test_fullregression's run_inference f32, Predictor.from_checkpoint within
+1e-2 of the Result file, the artifact in a fresh process that cannot import
+the models), K1 and K2 asserted 0 throughout (the family has no decoder),
+samples/s per epoch and frames/s printed; phase_paired holds the paired
+heads' four forms against the plain heads (full-width NYU f32 Predictor,
+the serving default's instance norm, the four requests, K1 twice a
+request; uvd within 1e-4 px/mm or twice the plain model's own card-vs-CPU
+gap) and runs tools/bench_paired_model at b256 bf16, stages 1 and 2;
+phase_ddp takes one full-width bf16 train step at a global batch of 128
+on two ranks sharing the card (spawned processes of
+tests/torch_port_ddp_worker.py, gloo with CUDA tensors, instance_anchored
+and batch norm; K1 and K2 counted in each rank), holds each rank against
+the one-process step on the same batch and draws (loss 1e-3, whole
+gradient 1e-1 relative) and both ranks' states equal, times three more
+steps of each, then runs train_msra under torchrun --nproc_per_node 1
+(NCCL) for an epoch.
+
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
 K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
 (K3's norm_kernel, K5's nr_kernel) or in the decoder's (K1, K2 and the
@@ -122,7 +142,8 @@ The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
 (serve, train, cli_train, cli_test, artifact, http, int8_serve,
-unit_engine, fused_engine, tools, bench),
+unit_engine, fused_engine, tools, bench, paired_serve, paired_tool,
+ddp_train a rank, fullreg_train, fullreg_test, fullreg_artifact),
 their times, their plain versions' and a library call's, and their bounds:
 the larger of the bytes they must move over 3.35 TB/s and their operations
 over the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
@@ -1196,6 +1217,329 @@ def phase_serving_chain(cs, device, smi_line):
     print(f"serving chain: small f32 batch-norm int8_static_all model, card vs CPU: {gap:.3e} of the uvd "
           f"scale (bound twice the CPU's own int8-vs-f32 gap, {own:.3e})")
     assert np.isfinite(got).all() and gap <= 2 * own, (gap, own)
+    return out
+
+
+FULLREG_EPOCHS = 2
+FULLREG_BATCH = 32
+PAIRED_HEAD_BOUND = 1e-4   # the paired heads' logits and depth maps vs the plain heads' on
+                           # the same hourglass output, f32, relative to their largest value
+DDP_BATCH = 128            # the global batch of the two-rank step
+DDP_TIMED_STEPS = 3
+DDP_CASES = ("instance_anchored", "batch")
+
+
+def _msra_fixture(work):
+    """The MSRA fixture (9 subjects x CLI_FRAMES frames) under ``work``,
+    indexed with check_dataset's device check on the card; returns its path."""
+    from pixelwiseregression_tpu_torch.cli.check_dataset import build_dataset
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "make_msra_fixture.py")
+    data = os.path.join(work, "msra")
+    subprocess.run([sys.executable, fixture, data, str(CLI_FRAMES)], check=True,
+                   capture_output=True, timeout=300)
+    build_dataset("MSRA", data, torch.device("cuda:0"))
+    return data
+
+
+def phase_fullreg(cs, device, smi_line, data, work):
+    """The FullRegression family through its own entry points at full width
+    (stages 2, features 128, level 4, label_size 64): train_fullregression's
+    run_training on the MSRA fixture (bf16, batch 32, 2 epochs), then
+    test_fullregression's run_inference in f32, Predictor.from_checkpoint
+    (fullregression=True) against the Result file, and the artifact exported
+    and loaded in a fresh process that cannot import the models. The family
+    has no decoder: K1 and K2 are asserted 0 on every part. Returns the
+    launches by path and the rates."""
+    from pixelwiseregression_tpu_torch.cli.common import make_test_parser, make_train_parser
+    from pixelwiseregression_tpu_torch.cli.test_main import run_inference
+    from pixelwiseregression_tpu_torch.cli.train_main import run_training
+    from pixelwiseregression_tpu_torch.data.sources import get_source
+    from pixelwiseregression_tpu_torch.serve import Predictor
+    from pixelwiseregression_tpu_torch.serve_artifact import export_artifact
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        args = make_train_parser(suffix_default="full_regression", msra=True,
+                                 fullregression=True).parse_args(
+            ["--subject", "0", "--epoch", str(FULLREG_EPOCHS), "--batch_size",
+             str(FULLREG_BATCH), "--mixed_precision", "--seed", "1", "--data_path", data])
+        assert (args.stages, args.features, args.level, args.label_size) == (STAGES, FEATURES,
+                                                                             LEVEL, H)
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            best_epoch, best_err = run_training(args, "MSRA", fullregression=True, subject=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        train = {"K1": cs.LAUNCHES, "K2": cs.BWD_LAUNCHES}
+        epochs = _epoch_lines(out.getvalue())
+        for i, (loss, mm, sps) in enumerate(epochs):
+            print(f"fullreg train epoch {i}: train_loss {loss:.5f}, val mean-mm {mm}, "
+                  f"{sps:.1f} samples/s ({smi_line}; epoch 0 includes the first step's set-up)")
+        print(f"fullreg train: {FULLREG_EPOCHS} epochs in {seconds:.1f} s, launches {train}, "
+              f"best epoch {best_epoch} at {best_err:.3f} mm", flush=True)
+        assert len(epochs) == FULLREG_EPOCHS and all(np.isfinite(e[0]) for e in epochs), epochs
+        assert train == {"K1": 0, "K2": 0}, train
+        final = os.path.join(work, "Model", "MSRA_full_regression_subject0_final.pt")
+        ckpt = torch.load(final, map_location="cpu", weights_only=True)
+        assert "stages.1.regression.4.weight" in ckpt["state_dict"]
+        assert all(torch.isfinite(v).all() for v in ckpt["state_dict"].values())
+
+        targs = make_test_parser(msra=True, fullregression=True).parse_args(
+            ["--subject", "0", "--batch_size", str(FULLREG_BATCH), "--data_path", data])
+        cs.LAUNCHES = 0
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            name, test_fps = run_inference(targs, "MSRA", fullregression=True, subject=0)
+        torch.cuda.synchronize()
+        test_launches = cs.LAUNCHES
+        result = np.loadtxt(os.path.join(work, name))
+        print(f"fullreg test f32: {test_fps:.1f} frames/s, K1 launches {test_launches}; "
+              f"{text.getvalue().strip().splitlines()[-1]}")
+        assert test_launches == 0 and np.isfinite(result).all()
+        assert result.shape == (CLI_FRAMES, 63), result.shape
+
+        src = get_source("MSRA", path=data, dataset="test", subject=0, test_only=True)
+        raw = [src.load_raw(line) for line in src.lines]
+        frames, coms = np.stack([r[0] for r in raw]), np.stack([r[2] for r in raw])
+        pred = Predictor.from_checkpoint(final, "MSRA", device, batch_size=FULLREG_BATCH,
+                                         fullregression=True)
+        live = pred.predict(frames, coms)["uvd"]
+        gap = float(np.abs(live.reshape(len(raw), -1) - result).max())
+        fps = statistics.median(_fps(pred, {"frame": frames, "com": coms}) for _ in range(3))
+        print(f"fullreg Predictor.from_checkpoint vs the test CLI's Result: largest gap "
+              f"{gap:.4f}; predict f32 batch {FULLREG_BATCH}: {fps:.1f} frames/s ({smi_line})")
+        assert gap <= CLI_RESULT_BOUND, gap
+
+        path = os.path.join(work, "fullreg.pwrsrv")
+        header = export_artifact(pred, path)
+        np.savez(os.path.join(work, "fr_req.npz"), frame0=frames, com0=coms)
+        child = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_CHILD, path, os.path.join(work, "fr_req.npz"),
+             os.path.join(work, "fr_uvd.npz")], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        assert child.returncode == 0, child.stderr[-3000:]
+        report = json.loads(child.stdout.strip().splitlines()[-1])
+        agap = float(np.abs(np.load(os.path.join(work, "fr_uvd.npz"))["0"] - live).max())
+        print(f"fullreg artifact ({header['format']}): a fresh process without the model code "
+              f"loaded it in {report['load_s']:.1f} s; K1 launches {report['launches']}; uvd vs "
+              f"the live Predictor {agap:.3e}", flush=True)
+        assert report["launches"] == [0] and not report["imported_blocked"], report
+        assert agap <= ARTIFACT_GAP_BOUND, agap
+        return {"fullreg_train": train, "fullreg_test": {"K1": test_launches},
+                "artifact": report["launches"][0],
+                "samples_per_s": [e[2] for e in epochs], "predict_fps": fps}
+    finally:
+        os.chdir(cwd)
+
+
+def _calibrated_full_width(device, seed, norm="instance_anchored"):
+    """A full-width NYU PixelwiseRegression's state from a seed after one
+    train-mode forward on the card (anchors calibrated, BatchNorm's
+    running statistics moved)."""
+    from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+
+    torch.manual_seed(seed)
+    model = PixelwiseRegression(J, stage=STAGES, features=FEATURES, level=LEVEL,
+                                norm_method=norm, decoder="torch").to(device)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xs = [torch.rand(8, 1, s, s, generator=g).to(device) for s in (2 * H, H, H)]
+    with torch.no_grad():
+        model.train()(*xs)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def phase_paired(cs, device, smi_line):
+    """The paired heads at full width (NYU, 2 stages, 128 features, level 4),
+    f32, for the two-pass instance norm (the serving default) and the
+    anchored norm with calibrated anchors, on one random-weight state each
+    (norm scales and biases drawn too).
+    Every mid/final form's heads (``paired_heads_apply``) against the plain
+    heads on the same hourglass output of each stage (the plain model's, on
+    request 0): logits and depth maps within PAIRED_HEAD_BOUND of their
+    largest value. Then each form's paired Predictor on the four requests: K1
+    twice a request, finite uvd, and its uvd gap to the plain Predictor
+    printed (not a gate: the gap after two stages of random weights carries
+    the heads' rounding difference amplified). Then the port's
+    tools/bench_paired_model at batch 256, bf16, stages 1 and 2 (every
+    variant in turns, frames/s and spread). Returns the launches, the gaps
+    and the tool's frames/s."""
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.models.paired_heads import paired_heads_apply
+    from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.serve import Predictor
+    from pixelwiseregression_tpu_torch.tools import bench_paired_model
+
+    spec = SPECS["NYU"]
+    requests = _requests(spec)
+    forms = (("separate", "separate"), ("separate", "blockdiag"), ("grouped", "blockdiag"),
+             ("grouped", "separate"))
+    launches, head_gaps, uvd_gaps = 0, {}, {}
+    for i, norm in enumerate(("instance", "instance_anchored")):
+        state = _calibrated_full_width(device, SEED + 30 + i, norm)
+        # the norms' scales and biases drawn away from their init (ones and
+        # zeros), so that each head's own reaches the paired path's output
+        g = torch.Generator().manual_seed(SEED + 35 + i)
+        for name, t in state.items():
+            if t.dim() == 1 and name.endswith((".weight", ".bias")):
+                noise = 0.1 * torch.randn(t.shape, generator=g)
+                state[name] = t * (1 + noise) if name.endswith(".weight") else t + noise
+        kw = dict(batch_size=SERVE_CHAIN_BATCH, stages=STAGES, features=FEATURES, level=LEVEL,
+                  norm_method=norm)
+        plain = Predictor.from_state_dict(state, "NYU", device, **kw)
+        feats = {}
+
+        def keep(k):
+            def hook(module, args, out):  # returns None: the output is left as it is
+                if k not in feats:
+                    feats[k] = out.detach().clone()
+            return hook
+
+        hooks = [b.hourglass.register_forward_hook(keep(k))
+                 for k, b in enumerate(plain.model.stages)]
+        want = [plain.predict(r["frame"], r["com"])["uvd"] for r in requests]
+        for h in hooks:
+            h.remove()
+        with torch.inference_mode():
+            for k, block in enumerate(plain.model.stages):
+                f = feats[k]
+                ref = (block.plane_regression(f), block.depth_regression(f))
+                for mid, final in forms:
+                    got = paired_heads_apply(f, block.plane_regression, block.depth_regression,
+                                             mid, final)
+                    for name, g, r in zip(("logits", "depthmaps"), got, ref):
+                        rel = float((g - r).abs().max() / r.abs().max())
+                        head_gaps[f"{norm} stage {k} {mid}/{final} {name}"] = rel
+                        assert torch.isfinite(g).all() and rel <= PAIRED_HEAD_BOUND, (
+                            norm, k, mid, final, name, rel)
+        worst = max(v for key, v in head_gaps.items() if key.startswith(norm + " "))
+        print(f"paired heads {norm}: every form's logits and depth maps vs the plain heads on "
+              f"the same hourglass output, each stage: largest gap {worst:.3e} of the "
+              f"output's scale (bound {PAIRED_HEAD_BOUND})", flush=True)
+        for mid, final in forms:
+            model = PixelwiseRegression(J, stage=STAGES, features=FEATURES, level=LEVEL,
+                                        norm_method=norm, decoder="cuda", paired_heads=True,
+                                        paired_mid=mid, paired_final=final)
+            model.load_state_dict(state)
+            pred = Predictor(model.to(device).eval(), plain.spec, plain.cfg, SERVE_CHAIN_BATCH,
+                             device)
+            assert all(b.use_paired() for b in pred.model.stages)
+            torch.cuda.synchronize()
+            before = cs.LAUNCHES
+            got = [pred.predict(r["frame"], r["com"])["uvd"] for r in requests]
+            torch.cuda.synchronize()
+            n = cs.LAUNCHES - before
+            key = f"{norm} {mid}/{final}"
+            uvd_gaps[key] = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            print(f"paired heads {key} f32 Predictor vs the plain heads: largest uvd gap "
+                  f"{uvd_gaps[key]:.3e} px/mm over {len(requests)} requests (printed, not "
+                  f"gated), K1 launches {n}", flush=True)
+            assert n == STAGES * len(requests), n
+            assert all(np.isfinite(g).all() for g in got)
+            launches += n
+            del pred, model
+        del plain, feats
+    _free()
+    t = time.perf_counter()
+    res = bench_paired_model.main(["--batch", "256", "--iters", "4", "--rounds", "3"])
+    for stages, r in res.items():
+        # the tool checks each variant's K1 launches against its calls itself
+        assert set(r["launches"]) == {"K1"} and r["launches"]["K1"] > 0, r["launches"]
+        print(f"paired heads A/B stage {stages} b256 bf16 ({smi_line}): " + ", ".join(
+            f"{name} {fps:.1f} frames/s" for name, fps in r["fps"].items()))
+    print(f"paired heads A/B in {time.perf_counter() - t:.1f} s", flush=True)
+    _free()
+    return {"paired_serve": launches, "tool": sum(r["launches"]["K1"] for r in res.values()),
+            "head_gaps": head_gaps, "uvd_gaps": uvd_gaps,
+            "fps": {s: r["fps"] for s, r in res.items()}}
+
+
+def phase_ddp(cs, device, smi_line, data, work):
+    """Multi-process training on the card. Two ranks (spawned processes, gloo
+    with CUDA tensors: NCCL refuses two ranks on one GPU) take one stage-2
+    bf16 train step of the full-width PixelwiseRegression at a global batch
+    of 128 (64 a rank), instance_anchored and batch norm, through K1 and K2
+    in each rank (counted there), held against the one-process step on the
+    same global batch and draws (the train parity bounds), then
+    DDP_TIMED_STEPS more steps timed beside the one-process step's; then
+    train.py's run_training under torchrun --nproc_per_node 1 (NCCL) for one
+    epoch on the MSRA fixture. Returns the launches and the times."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_port_ddp_worker as worker
+
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+
+    cam = SPECS["NYU"].camera
+    raw = _raw_batch("cpu", DDP_BATCH, SEED + 40)
+    cases = []
+    for norm in DDP_CASES:
+        cases.append({
+            "kind": "pixelwise",
+            "model": dict(joints=J, stage=STAGES, features=FEATURES, level=LEVEL,
+                          norm_method=norm, decoder="cuda", dtype=torch.bfloat16),
+            "state": _calibrated_full_width(device, SEED + 41, norm), "batch": raw,
+            "cfg": dict(fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv,
+                        image_size=2 * H, label_size=H, using_rotation=True, using_scale=True,
+                        using_shift=True),
+            "eval_cfg": dict(fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv,
+                             image_size=2 * H, label_size=H),
+            "camera": dict(fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv),
+            "loss": dict(lambda_h=1.0, lambda_d=0.01, alpha=1.0),
+            "timed_steps": DDP_TIMED_STEPS})
+    cases_path = os.path.join(work, "ddp_cases.pt")
+    torch.save({"cases": cases, "seed": SEED + 42}, cases_path)
+    _free()
+    t = time.perf_counter()
+    ranks = worker.spawn(cases_path, work, device="cuda", backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t
+    out = {"launches": [], "ms": {}}
+    for i, norm in enumerate(DDP_CASES):
+        single = worker.run_case(cases[i], device, SEED + 42, local=False)
+        _free()
+        for r, rank in enumerate(ranks):
+            got = rank["results"][i]
+            loss_gap = abs(float(got["train"]["loss"]) - float(single["train"]["loss"])) / abs(
+                float(single["train"]["loss"]))
+            grad_gap = _whole_gap({n: g.double() for n, g in got["grads"].items()},
+                                  {n: g.double() for n, g in single["grads"].items()})
+            print(f"ddp {norm}: rank {r} of 2 (gloo, CUDA tensors) vs one process on the global "
+                  f"batch {DDP_BATCH}: loss {float(got['train']['loss']):.6f} vs "
+                  f"{float(single['train']['loss']):.6f} (relative gap {loss_gap:.3e}), "
+                  f"whole-gradient relative gap {grad_gap:.3e}, launches {got['launches']}",
+                  flush=True)
+            assert got["launches"] == {"K1": STAGES, "K2": STAGES}, got["launches"]
+            assert loss_gap <= LOSS_GAP_BOUND and grad_gap <= GRAD_GAP_BOUND, (loss_gap, grad_gap)
+            out["launches"].append(got["launches"])
+        for name, t_ in ranks[0]["results"][i]["state"].items():
+            assert torch.equal(t_, ranks[1]["results"][i]["state"][name]), name
+        two = [statistics.median(rk["results"][i]["step_s"]) * 1e3 for rk in ranks]
+        one = statistics.median(single["step_s"]) * 1e3
+        out["ms"][norm] = {"two_ranks": two, "one_process": one}
+        print(f"ddp {norm} bf16 step time ({smi_line}): two ranks on one card {two[0]:.1f} / "
+              f"{two[1]:.1f} ms (median of {DDP_TIMED_STEPS}, each rank 64 frames), one "
+              f"process {one:.1f} ms at {DDP_BATCH} frames", flush=True)
+        del single
+    print(f"ddp: both ranks' processes in {spawn_s:.1f} s (start, build, steps)")
+    assert ranks[0]["backend"] == "gloo"
+
+    env = dict(os.environ, PWR_TB_IMAGES="0",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+         "--master_addr", "127.0.0.1", "--master_port", str(worker.free_port()), "-m",
+         "pixelwiseregression_tpu_torch.cli.train_msra", "--subject", "0", "--epoch", "1",
+         "--batch_size", str(CLI_BATCH), "--mixed_precision", "--seed", "2", "--data_path", data],
+        capture_output=True, text=True, timeout=600, cwd=work, env=env)
+    print(f"ddp: torchrun --nproc_per_node 1 train_msra (NCCL) in {time.perf_counter() - t:.1f} "
+          f"s, exit {r.returncode}: " + " | ".join(
+              line for line in r.stdout.splitlines() if line.startswith(("device", "epoch"))))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "1 processes of batch 32 (nccl)" in r.stdout and "epoch 0: train_loss" in r.stdout
     return out
 
 
@@ -2284,6 +2628,19 @@ def main() -> int:
     phase_train_reference(device)
     cli_launches = phase_cli(cs, device, smi_line)
     chain = phase_serving_chain(cs, device, smi_line)
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="pwr_slice_")
+    try:
+        data = _msra_fixture(work)
+        fullreg = phase_fullreg(cs, device, smi_line, data, work)
+        _free()
+        paired = phase_paired(cs, device, smi_line)
+        ddp = phase_ddp(cs, device, smi_line, data, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _free()
     units = phase_fused_units(device)
     hourglass = phase_hourglass(device)
     engine_launches = phase_engines(cs, device)
@@ -2346,7 +2703,13 @@ def main() -> int:
                               "fused_engine": engine_launches["fused"][2],
                               "artifact": chain["artifact"], "http": chain["http"],
                               "int8_serve": chain["int8_serve"],
-                              "bench": bench_launches["K1"]},
+                              "bench": bench_launches["K1"],
+                              "paired_serve": paired["paired_serve"],
+                              "paired_tool": paired["tool"],
+                              "ddp_train": [r["K1"] for r in ddp["launches"]],
+                              "fullreg_train": fullreg["fullreg_train"]["K1"],
+                              "fullreg_test": fullreg["fullreg_test"]["K1"],
+                              "fullreg_artifact": fullreg["artifact"]},
          "max_abs_err": main_fwd["max_abs_err"], "ms": fwd_row["call_ms"], **fwd_row,
          "plain_ms": main_fwd["plain_ms"], "library_ms": None,
          "by_path": {path: timing(f"fwd {path}") for path, *_ in DECODER_SHAPES},
@@ -2361,7 +2724,9 @@ def main() -> int:
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
          "launches": train_launches[1],
          "launches_by_path": {"train": train_launches[1], "cli_train": cli_launches["K2"],
-                              "bench": bench_launches["K2"]},
+                              "bench": bench_launches["K2"],
+                              "ddp_train": [r["K2"] for r in ddp["launches"]],
+                              "fullreg_train": fullreg["fullreg_train"]["K2"]},
          "kernel_launches_by_path": {"train": train_launches[2],
                                      "cli_train": cli_launches["K2_kernels"],
                                      "bench": bench_launches["K2_kernels"]},

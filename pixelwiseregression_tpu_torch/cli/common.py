@@ -17,6 +17,11 @@ working, with these differences:
 The test CLIs' ``--quant int8[_static][_all|_heads]`` runs the int8 model
 (``models/layers.py``); a static mode calibrates on the first
 ``--quant_calib_batches`` test batches. A quantized model refuses to train.
+
+``fullregression=True`` gives the FullRegression CLIs' surfaces, which drop
+the flags the JAX package drops there (``--heatmap_method``,
+``--lambda_*``, ``--alpha``, ``--filter_size``, ``--quant*``,
+``--process_mode``); their default ``--suffix`` is ``full_regression``.
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ def add_device_args(p: argparse.ArgumentParser):
 
 
 def make_train_parser(dataset_default: str = "NYU", suffix_default: str = "default",
-                      msra: bool = False):
+                      msra: bool = False, fullregression: bool = False):
     p = argparse.ArgumentParser()
     p.add_argument("--suffix", type=str, default=suffix_default,
                    help="the suffix of model file and log file")
@@ -88,12 +93,13 @@ def make_train_parser(dataset_default: str = "NYU", suffix_default: str = "defau
     p.add_argument("--seed", type=int, default=0,
                    help="the random seed used in the training, 0 means do not use fix seed")
     add_model_args(p)
-    p.add_argument("--heatmap_method", type=str, default="softmax",
-                   help="choose from softmax and sum")
-    p.add_argument("--lambda_h", type=float, default=1.0)
-    p.add_argument("--lambda_d", type=float, default=0.01)
-    p.add_argument("--alpha", type=float, default=1.0)
-    p.add_argument("--filter_size", type=int, default=3)
+    if not fullregression:
+        p.add_argument("--heatmap_method", type=str, default="softmax",
+                       help="choose from softmax and sum")
+        p.add_argument("--lambda_h", type=float, default=1.0)
+        p.add_argument("--lambda_d", type=float, default=0.01)
+        p.add_argument("--alpha", type=float, default=1.0)
+        p.add_argument("--filter_size", type=int, default=3)
     p.add_argument("--using_rotation", type=_bool01, default=True)
     p.add_argument("--using_scale", type=_bool01, default=True)
     p.add_argument("--using_shift", type=_bool01, default=True)
@@ -116,9 +122,11 @@ def make_train_parser(dataset_default: str = "NYU", suffix_default: str = "defau
     return p
 
 
-def make_test_parser(dataset_default: str = "MSRA", msra: bool = False):
+def make_test_parser(dataset_default: str = "MSRA", msra: bool = False,
+                     fullregression: bool = False):
     p = argparse.ArgumentParser()
-    p.add_argument("--suffix", type=str, default="default",
+    p.add_argument("--suffix", type=str,
+                   default="full_regression" if fullregression else "default",
                    help="the suffix of model file and log file")
     if msra:
         p.add_argument("--subject", type=int, default=0)
@@ -126,19 +134,21 @@ def make_test_parser(dataset_default: str = "MSRA", msra: bool = False):
         p.add_argument("--dataset", type=str, default=dataset_default,
                        help="choose from MSRA, ICVL, NYU, HAND17")
     add_model_args(p)
-    p.add_argument("--heatmap_method", type=str, default="softmax",
-                   help="choose from softmax and sum")
-    p.add_argument("--filter_size", type=int, default=3)
-    if not msra:
-        p.add_argument("--process_mode", type=str, default="uvd", help="choose from uvd and bb")
-    p.add_argument("--quant", type=str, default="none",
-                   help="int8 inference quantization, 'int8[_static][_all|_heads]': coverage "
-                        "stem+heads / +hourglass / heads only; '_static' uses per-channel "
-                        "scales calibrated over --quant_calib_batches. Same checkpoint "
-                        "serves every mode")
-    p.add_argument("--quant_calib_batches", type=int, default=4,
-                   help="batches used to calibrate static int8 activation scales (running "
-                        "per-channel |x| max)")
+    if not fullregression:
+        p.add_argument("--heatmap_method", type=str, default="softmax",
+                       help="choose from softmax and sum")
+        p.add_argument("--filter_size", type=int, default=3)
+        if not msra:
+            p.add_argument("--process_mode", type=str, default="uvd",
+                           help="choose from uvd and bb")
+        p.add_argument("--quant", type=str, default="none",
+                       help="int8 inference quantization, 'int8[_static][_all|_heads]': "
+                            "coverage stem+heads / +hourglass / heads only; '_static' uses "
+                            "per-channel scales calibrated over --quant_calib_batches. Same "
+                            "checkpoint serves every mode")
+        p.add_argument("--quant_calib_batches", type=int, default=4,
+                       help="batches used to calibrate static int8 activation scales "
+                            "(running per-channel |x| max)")
     p.add_argument("--gpu_id", type=str, default="0", help="the card: cuda:<gpu_id>")
     p.add_argument("--num_workers", type=int, default=9999)
     p.add_argument("--seed", type=str, default="final")
@@ -164,10 +174,16 @@ def resolve_device(args) -> torch.device:
     return torch.device(f"cuda:{int(getattr(args, 'gpu_id', '0') or 0)}")
 
 
-def model_kwargs_from_args(args, joints: int) -> dict:
-    """``PixelwiseRegression``'s keyword arguments from the parsed flags."""
+def model_kwargs_from_args(args, joints: int, fullregression: bool = False) -> dict:
+    """``PixelwiseRegression``'s (``FullRegression``'s) keyword arguments
+    from the parsed flags."""
     quant = getattr(args, "quant", "none")
     bf16 = getattr(args, "bf16", False) or getattr(args, "mixed_precision", False)
+    if fullregression:
+        return dict(joints=joints, stage=args.stages, label_size=args.label_size,
+                    features=args.features, level=args.level, norm_method=args.norm_method,
+                    dtype=torch.bfloat16 if bf16 else torch.float32,
+                    remat=getattr(args, "remat", False))
     return dict(
         joints=joints,
         stage=args.stages,

@@ -1,5 +1,5 @@
-"""Inference entry point shared by ``cli/test.py`` and ``cli/test_msra.py``
-(mirrors ``pixelwiseregression_tpu/cli/test_main.py``).
+"""Inference entry point shared by ``cli/test.py``, ``cli/test_msra.py`` and
+``cli/test_fullregression.py`` (mirrors ``pixelwiseregression_tpu/cli/test_main.py``).
 
 Runs the test split through the on-device preprocessing and the model (K1
 under ``--decoder cuda``), de-normalizes uvd with ``recover_uvd`` on the
@@ -9,8 +9,8 @@ Reads a port ``.pt``, a reference ``.pt`` or a JAX ``.ckpt``.
 
 ``--quant`` runs the int8 model; a static mode first calibrates its scales
 on the first ``--quant_calib_batches`` test batches and refuses to run on
-none or on all-zero scales. FullRegression (ROADMAP A13) is not ported yet
-and raises ``NotImplementedError``.
+none or on all-zero scales. ``fullregression=True`` runs a FullRegression
+checkpoint, whose last stage's output is the uvd (JAX ``:93``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from pixelwiseregression_tpu_torch.core.camera import recover_uvd
 from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import get_source
+from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
 from pixelwiseregression_tpu_torch.models.layers import quant_scales
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 from pixelwiseregression_tpu_torch.train.checkpoint import load_checkpoint
@@ -48,8 +49,6 @@ def _find_model_file(model_dir: str, base: str) -> str:
 
 def run_inference(args, dataset_name: str, fullregression: bool = False, subject=None):
     """Write the test split's predictions; returns ``(result file, frames/s)``."""
-    if fullregression:
-        raise NotImplementedError("FullRegression is not ported yet (ROADMAP A13)")
     device = resolve_device(args)
     os.makedirs("Result", exist_ok=True)
     if not os.path.exists("Model"):
@@ -63,7 +62,7 @@ def run_inference(args, dataset_name: str, fullregression: bool = False, subject
         source_kw["process_mode"] = process_mode
     testset = get_source(dataset_name, dataset="test", **source_kw)
     joints = testset.joint_number
-    model_kw = model_kwargs_from_args(args, joints)
+    model_kw = model_kwargs_from_args(args, joints, fullregression=fullregression)
     cam = testset.spec.camera
     pp = PreprocessConfig(fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv,
                           image_size=args.label_size * 2, label_size=args.label_size,
@@ -76,21 +75,22 @@ def run_inference(args, dataset_name: str, fullregression: bool = False, subject
     # an f32 model runs in f32 on the card, as in serve.Predictor
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = PixelwiseRegression(**model_kw)
+    model = (FullRegression if fullregression else PixelwiseRegression)(**model_kw)
     model.load_state_dict(load_checkpoint(ckpt_path)["state_dict"])
     model.to(device).eval()
 
     def infer(batch):
         with torch.inference_mode():
             data = preprocess_batch(to_device(batch, device), pp, test_only=True)
-            uvd = model(*model_inputs(data))[-1][2].to(torch.float32)
+            last = model(*model_inputs(data))[-1]
+            uvd = (last if fullregression else last[2]).to(torch.float32)
             return recover_uvd(uvd, data["box_size"], data["com"], data["cube"]).cpu().numpy()
 
     loader = Loader(testset, args.batch_size, shuffle=False, drop_last=False,
                     num_workers=resolve_num_workers(args.num_workers),
                     on_error="skip" if getattr(args, "skip_bad_samples", False) else "raise")
 
-    quant = model_kw["quant"]
+    quant = model_kw.get("quant")
     if quant and "static" in quant:
         # calibrate the static int8 scales (running per-channel |x| max) on
         # the first --quant_calib_batches batches, then freeze them

@@ -1,5 +1,6 @@
-"""Training entry point shared by ``cli/train.py`` and ``cli/train_msra.py``
-(mirrors ``pixelwiseregression_tpu/cli/train_main.py``).
+"""Training entry point shared by ``cli/train.py``, ``cli/train_msra.py`` and
+``cli/train_fullregression.py`` (mirrors
+``pixelwiseregression_tpu/cli/train_main.py``).
 
 The loop is the JAX package's: raw host batches from the threaded
 ``Loader`` go to the device (pinned memory, non-blocking copies), where one
@@ -11,12 +12,23 @@ mean-mm) is copied to ``<log_name>_final.pt``. TensorBoard scalars and
 images go through tensorboardX where it is installed (a null writer
 otherwise; ``PWR_TB_IMAGES=0`` skips the images).
 
-The FullRegression model (ROADMAP A13) and multi-process training (A14)
-are not ported yet and raise ``NotImplementedError``.
+``fullregression=True`` trains the FullRegression family: its model, the
+uvd-only steps (``make_train_step_fullreg``), the val loss ``sum`` of the
+stage losses and images without maps.
+
+Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` and ``RANK`` set)
+each process joins the process group (``parallel/mesh.py``: NCCL on the
+card, gloo on the CPU; a rank's card is ``cuda:LOCAL_RANK``), loads its
+``process_local_lines`` of the index at ``batch_size // N`` a batch (the
+batch must divide), and the steps compute the global batch's step on every
+rank. Every rank takes the same number of train steps and val batches (a
+rank with fewer val lines runs zero-weight batches). Rank 0 alone prints,
+logs and writes the checkpoints and the final alias.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
@@ -32,7 +44,9 @@ from pixelwiseregression_tpu_torch.cli.common import (
 from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import get_source
+from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.parallel import mesh
 from pixelwiseregression_tpu_torch.train.checkpoint import (
     alias_final,
     load_checkpoint,
@@ -43,7 +57,9 @@ from pixelwiseregression_tpu_torch.train.loop import (
     LossConfig,
     create_train_state,
     make_eval_step,
+    make_eval_step_fullreg,
     make_train_step,
+    make_train_step_fullreg,
     model_inputs,
 )
 from pixelwiseregression_tpu_torch.utils.seeding import setup_seed
@@ -82,9 +98,9 @@ def _write_trace(profiler, profile_dir: str, device: torch.device):
     print(f"profile trace written to {profile_dir}")
 
 
-def _log_images(writer, epoch, model, batch, pp_val, config, device):
+def _log_images(writer, epoch, model, batch, pp_val, config, device, fullregression=False):
     """Per-epoch image logging on one val batch: the input, its labels and
-    each stage's maps and skeleton."""
+    each stage's maps (none for FullRegression) and skeleton."""
     from pixelwiseregression_tpu_torch.utils.viz import draw_features, draw_skeleton_normalized
 
     with torch.no_grad():
@@ -94,31 +110,63 @@ def _log_images(writer, epoch, model, batch, pp_val, config, device):
     writer.add_image("input_image",
                      data["img"][0].float().cpu().numpy().transpose(2, 0, 1)
                      / max(float(np.abs(img0).max()), 1e-6), epoch)
-    writer.add_figure("input_heatmap", draw_features(data["heatmaps"][0].cpu().numpy()), epoch)
-    writer.add_figure("input_depthmap", draw_features(data["dmaps"][0].cpu().numpy()), epoch)
+    if not fullregression:
+        writer.add_figure("input_heatmap", draw_features(data["heatmaps"][0].cpu().numpy()),
+                          epoch)
+        writer.add_figure("input_depthmap", draw_features(data["dmaps"][0].cpu().numpy()), epoch)
     skel = draw_skeleton_normalized(img0, data["uvd"][0].cpu().numpy(), config)
     writer.add_image("input_skeleton", skel.transpose(2, 0, 1), epoch)
-    for i, (hm, dm, uvd) in enumerate(results):
-        writer.add_figure(f"stage{i}_heatmap",
-                          draw_features(hm[0].float().permute(1, 2, 0).cpu().numpy()), epoch)
-        writer.add_figure(f"stage{i}_depthmap",
-                          draw_features(dm[0].float().permute(1, 2, 0).cpu().numpy()), epoch)
+    for i, result in enumerate(results):
+        if fullregression:
+            uvd = result
+        else:
+            hm, dm, uvd = result
+            writer.add_figure(f"stage{i}_heatmap",
+                              draw_features(hm[0].float().permute(1, 2, 0).cpu().numpy()), epoch)
+            writer.add_figure(f"stage{i}_depthmap",
+                              draw_features(dm[0].float().permute(1, 2, 0).cpu().numpy()), epoch)
         skel = draw_skeleton_normalized(img0, uvd[0].float().cpu().numpy(), config)
         writer.add_image(f"stage{i}_skeleton", skel.transpose(2, 0, 1), epoch)
+
+
+def _val_batches(loader, n: int):
+    """``loader``'s batches, then zero-weight copies of its last one up to
+    ``n`` in all, so that every rank runs ``n`` eval steps."""
+    last = None
+    for last in loader:
+        yield last
+        n -= 1
+    if n > 0 and last is None:
+        raise RuntimeError("a rank holds no val sample; the val split is smaller than the "
+                           "number of processes")
+    for _ in range(n):
+        yield dict(last, weight=np.zeros_like(last["weight"]), count=np.int32(0))
 
 
 def run_training(args, dataset_name: str, fullregression: bool = False, subject=None):
     """Train on ``dataset_name`` (``subject``: MSRA's held-out subject) as the
     flags say; returns ``(best_epoch, best_error)`` (the last stage's val
-    mean-mm at the best epoch)."""
-    if fullregression:
-        raise NotImplementedError("FullRegression is not ported yet (ROADMAP A13)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process training is not ported yet (ROADMAP A14)")
+    mean-mm at the best epoch). Under torchrun, joins the process group
+    for the run."""
+    own_group = mesh.launched() and not mesh.active()
     device = resolve_device(args)
-    os.makedirs("Model", exist_ok=True)
+    if own_group:
+        device = mesh.init(device.type)
+    try:
+        return _run_training(args, dataset_name, fullregression, subject, device)
+    finally:
+        if own_group:
+            mesh.shutdown()
+
+
+def _run_training(args, dataset_name, fullregression, subject, device):
+    world, main_rank = mesh.world_size(), mesh.rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    if main_rank:
+        os.makedirs("Model", exist_ok=True)
 
     seed = args.seed if args.seed else int(np.random.randint(0, 100000))
+    seed = mesh.broadcast_object(seed)
     setup_seed(seed)
 
     source_kw = dict(path=args.data_path, cube_size=None)
@@ -141,19 +189,33 @@ def run_training(args, dataset_name: str, fullregression: bool = False, subject=
     pp_val = PreprocessConfig(**common)
 
     num_workers = resolve_num_workers(args.num_workers)
-    train_loader = Loader(trainset, args.batch_size, shuffle=True, drop_last=True,
-                          num_workers=num_workers, seed=seed)
-    val_loader = Loader(valset, args.batch_size, shuffle=False, drop_last=False,
-                        num_workers=num_workers)
-    print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                 if device.type == "cuda" else ""))
+    if args.batch_size % world:
+        raise ValueError(f"batch_size {args.batch_size} must divide over {world} processes")
+    local_bs = args.batch_size // world
+    # each process loads its interleaved slice of the index; the local
+    # batches make up the global batch
+    train_lines = mesh.process_local_lines(trainset.lines)
+    val_lines = mesh.process_local_lines(valset.lines)
+    train_loader = Loader(trainset, local_bs, shuffle=True, drop_last=True,
+                          num_workers=num_workers, seed=seed, lines=train_lines)
+    val_loader = Loader(valset, local_bs, shuffle=False, drop_last=False,
+                        num_workers=num_workers, lines=val_lines)
+    # every rank takes as many steps: the global count (each rank holds at
+    # least that many full local batches) and the largest rank's val batches
+    train_steps = len(trainset.lines) // args.batch_size
+    val_steps = -(-(-(-len(valset.lines) // world)) // local_bs)
+    say(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                               if device.type == "cuda" else "")
+        + (f", {world} processes of batch {local_bs} "
+           f"({torch.distributed.get_backend()})" if mesh.active() else ""))
 
-    model_kw = model_kwargs_from_args(args, joints)
-    model = PixelwiseRegression(**model_kw).to(device)
+    model_kw = model_kwargs_from_args(args, joints, fullregression=fullregression)
+    model = (FullRegression if fullregression else PixelwiseRegression)(**model_kw).to(device)
+    mesh.broadcast_module(model)
 
     # a floor of 1 so that the schedule never divides by zero
     steps_per_epoch = max(len(trainset.lines) // args.batch_size, 1)
-    print(f"there are {steps_per_epoch} steps per epoch!")
+    say(f"there are {steps_per_epoch} steps per epoch!")
     state = create_train_state(
         model, opt=args.opt, lr=args.lr, beta1=args.beta1, beta2=args.beta2,
         weight_decay=args.weight_decay, lr_decay=args.lr_decay,
@@ -161,11 +223,16 @@ def run_training(args, dataset_name: str, fullregression: bool = False, subject=
 
     if getattr(args, "resume", None):
         restore_train_state(state, load_checkpoint(args.resume))
-        print(f"resumed from {args.resume} at step {state.step}")
+        say(f"resumed from {args.resume} at step {state.step}")
 
-    loss_cfg = LossConfig(lambda_h=args.lambda_h, lambda_d=args.lambda_d, alpha=args.alpha)
-    train_step = make_train_step(pp_train, loss_cfg, augment=True)
-    eval_step = make_eval_step(pp_val, loss_cfg, cam)
+    if fullregression:
+        loss_cfg = None
+        train_step = make_train_step_fullreg(pp_train)
+        eval_step = make_eval_step_fullreg(pp_val, cam)
+    else:
+        loss_cfg = LossConfig(lambda_h=args.lambda_h, lambda_d=args.lambda_d, alpha=args.alpha)
+        train_step = make_train_step(pp_train, loss_cfg, augment=True)
+        eval_step = make_eval_step(pp_val, loss_cfg, cam)
     # the augmentation draws, from a generator of their own on the device
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -174,7 +241,7 @@ def run_training(args, dataset_name: str, fullregression: bool = False, subject=
     if subject is not None:
         log_name = f"{dataset_name}_{args.suffix}_subject{subject}"
     model_name = log_name + "_{}.pt"
-    writer = _writer(log_name)
+    writer = _writer(log_name) if main_rank else _NullWriter()
     model_param = make_model_param(model_kw, args.label_size)
 
     best_epoch, best_error = 0, float("inf")
@@ -187,7 +254,7 @@ def run_training(args, dataset_name: str, fullregression: bool = False, subject=
         # ---- train ----
         t0 = time.time()
         epoch_steps = 0
-        for batch in train_loader:
+        for batch in itertools.islice(train_loader, train_steps):
             batch.pop("count", None)
             if profile_dir is not None and step_count == 3:
                 activities = [torch.profiler.ProfilerActivity.CPU]
@@ -211,7 +278,7 @@ def run_training(args, dataset_name: str, fullregression: bool = False, subject=
 
         # ---- eval ----
         val_losses, val_errs, n_total, n_batches = None, None, 0.0, 0
-        for batch in val_loader:
+        for batch in _val_batches(val_loader, val_steps):
             batch.pop("count")
             if viz_batch is None:
                 viz_batch = {k: v for k, v in batch.items() if np.ndim(v)}
@@ -230,43 +297,48 @@ def run_training(args, dataset_name: str, fullregression: bool = False, subject=
 
         # samples/s of the train phase (epoch 0 includes the kernels' build)
         fps = epoch_steps * args.batch_size / max(train_elapsed, 1e-9)
-        print(f"epoch {epoch}: train_loss {train_loss:.5f}  "
-              f"val mean-mm {np.array2string(val_errs, precision=3)}  ({fps:.1f} samples/s)")
+        say(f"epoch {epoch}: train_loss {train_loss:.5f}  "
+            f"val mean-mm {np.array2string(val_errs, precision=3)}  ({fps:.1f} samples/s)")
 
         # PWR_TB_IMAGES=0 skips the images (one more forward an epoch)
         if (viz_batch is not None and not isinstance(writer, _NullWriter)
                 and os.environ.get("PWR_TB_IMAGES", "1") != "0"):
             try:
                 _log_images(writer, epoch, state.model, viz_batch, pp_val, trainset.config,
-                            device)
+                            device, fullregression)
             except Exception as e:  # viz must never kill a training run
                 print(f"image logging failed: {type(e).__name__}: {e}")
 
         # ---- tensorboard scalars ----
         n_stages = stage_l.shape[0]
-        val_total = float(sum(
-            loss_cfg.alpha * val_losses[i][2]
-            + (1 - loss_cfg.alpha) * (val_losses[i][0] + val_losses[i][1])
-            for i in range(n_stages)))
+        if fullregression:
+            val_total = float(np.sum(val_losses))
+        else:
+            val_total = float(sum(
+                loss_cfg.alpha * val_losses[i][2]
+                + (1 - loss_cfg.alpha) * (val_losses[i][0] + val_losses[i][1])
+                for i in range(n_stages)))
         writer.add_scalars("loss", {"train": train_loss, "val": val_total}, epoch)
         for i in range(n_stages):
-            for j, name in enumerate(("heatmap", "depthmap", "uvd")):
+            for j, name in enumerate(() if fullregression else ("heatmap", "depthmap", "uvd")):
                 writer.add_scalars(f"stage{i}_{name}_loss",
                                    {"train": float(stage_l[i][j]), "val": float(val_losses[i][j])},
                                    epoch)
             writer.add_scalar(f"stage{i}_result", float(val_errs[i]), epoch)
 
         # ---- checkpoint ----
-        save_checkpoint(os.path.join("Model", model_name.format(epoch)), state.model, seed=seed,
-                        model_param=model_param, optimizer=state.optimizer,
-                        scheduler=state.scheduler, step=state.step)
+        if main_rank:
+            save_checkpoint(os.path.join("Model", model_name.format(epoch)), state.model,
+                            seed=seed, model_param=model_param, optimizer=state.optimizer,
+                            scheduler=state.scheduler, step=state.step)
         if float(val_errs[-1]) < best_error:
             best_epoch = epoch
             best_error = float(val_errs[-1])
 
     if profiler is not None:  # fewer than 7 steps: the trace of those after step 3
         _write_trace(profiler, profile_dir, device)
-    print(f"best epoch is {best_epoch}")
-    alias_final("Model", model_name, best_epoch)
+    say(f"best epoch is {best_epoch}")
+    if main_rank:
+        alias_final("Model", model_name, best_epoch)
     writer.close()
     return best_epoch, best_error

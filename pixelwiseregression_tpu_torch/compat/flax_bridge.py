@@ -11,8 +11,14 @@ state dict under the reference torch names, which the port's
   ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``);
 * the anchored norm's ``anchor``/``anchor_n`` keep their names (the forward
   converter does not carry them);
+* FullRegression's dense kernels ``fc_i.dense.kernel`` ``[in, out]`` ->
+  ``regression.{0,2,4}.weight`` ``[out, in]``, its ``down_conv_i`` /
+  ``down_norm_i`` -> ``downsampling.{0,1,3,4,6,7}``;
 * flax module names -> the reference's ``nn.Sequential`` indices, by the
   tables below (the inverse of the converter's).
+
+One function serves both model families: their trees differ in module
+names only (``proj`` is ``stages.N.conv`` in both).
 
 ``quant_scales_from_flax`` maps the JAX int8 model's calibrated
 ``quant_scales`` collection (``act_absmax_c`` of each static int8 conv) to
@@ -38,6 +44,11 @@ _RESBLOCK_IDX = {"norm_0": 0, "conv_0": 2, "norm_1": 3, "conv_1": 5, "norm_2": 6
 # plane/depth head Sequential: [conv, norm, relu] * 3 + [conv]
 _HEAD_IDX = {"conv_0": 0, "norm_0": 1, "conv_1": 3, "norm_1": 4, "conv_2": 6, "norm_2": 7,
              "conv_3": 9}
+# FullRegressionBlock.downsampling: [conv, norm, relu] * 3
+_DOWN_IDX = {"down_conv_0": 0, "down_norm_0": 1, "down_conv_1": 3, "down_norm_1": 4,
+             "down_conv_2": 6, "down_norm_2": 7}
+# FullRegressionBlock.regression: [linear, relu, linear, relu, linear]
+_FC_IDX = {"fc_0": 0, "fc_1": 2, "fc_2": 4}
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var", "anchor": "anchor", "anchor_n": "anchor_n"}
 
@@ -56,6 +67,10 @@ def _module_name(path: Tuple[str, ...]) -> str:
             return ".".join([stage, *rest[:-1], "conv", str(_RESBLOCK_IDX[rest[-1]])])
         if rest[0] in ("plane", "depth") and len(rest) == 2:
             return f"{stage}.{rest[0]}_regression.conv.{_HEAD_IDX[rest[1]]}"
+        if rest[0] in _DOWN_IDX and len(rest) == 1:
+            return f"{stage}.downsampling.{_DOWN_IDX[rest[0]]}"
+        if rest[0] in _FC_IDX and len(rest) == 1:
+            return f"{stage}.regression.{_FC_IDX[rest[0]]}"
     raise KeyError(f"no reference name for flax module {'/'.join(path)}")
 
 
@@ -77,6 +92,10 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
                     module = path[:-1]
                     if name == "kernel":
                         value = value.transpose(3, 2, 0, 1)
+                elif path[-1] == "dense":  # the flax nn.Dense inside _Dense
+                    module = path[:-1]
+                    if name == "kernel":
+                        value = value.T
                 key = f"{_module_name(module)}.{_LEAF[name]}"
                 if name == "mean":
                     out[f"{_module_name(module)}.num_batches_tracked"] = torch.tensor(0)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixelwiseregression_tpu_torch.parallel import mesh
+
 
 # torch._int_mm calls made by the int8 convs (live calls; an exported
 # program runs the product as an operator of its own and is not counted)
@@ -269,6 +271,10 @@ class InstanceNorm(nn.Module):
     absent: a state dict without them (a reference ``.pt`` file) leaves them
     ``None``, and the norm then runs the exact two-pass form, as the JAX
     package does for a checkpoint without ``batch_stats``.
+
+    In a ``torch.distributed`` run (``parallel/mesh.py``) the anchors' EMA
+    takes the mean over the global batch (the ranks' batch means averaged),
+    as the JAX norm's update does over a mesh.
     """
 
     eps = 1e-5
@@ -308,9 +314,25 @@ class InstanceNorm(nn.Module):
         if anchored and self.training:
             with torch.no_grad():
                 m = torch.tensor(self.anchor_momentum, dtype=torch.float32, device=x.device)
-                self.anchor.copy_(m * self.anchor + (1.0 - m) * mean.mean(dim=(0, 2, 3)))
+                # the batch mean of the per-(B, C) means, summed in f64 (and
+                # over the ranks in a distributed run)
+                batch_mean = mesh.global_mean(mean.sum(dim=(0, 2, 3), dtype=torch.float64),
+                                              mean.shape[0]).to(torch.float32)
+                self.anchor.copy_(m * self.anchor + (1.0 - m) * batch_mean)
                 self.anchor_n += 1.0
         return y.to(x.dtype)
+
+
+def _batch_moments(x32):
+    """E[x] and E[x^2] per channel over (B, H, W) of f32 ``x32``: each
+    sample's sums in f32, their sum over the batch (and over the ranks, in a
+    distributed run: differentiably) in f64, so that the moments do not
+    depend on how the batch is split over ranks."""
+    b, _, h, w = x32.shape
+    per_sample = torch.stack([x32.sum(dim=(2, 3)), torch.square(x32).sum(dim=(2, 3))])
+    sums = mesh.all_reduce_sum_grad(per_sample.to(torch.float64).sum(dim=1))
+    moments = (sums / (b * h * w * mesh.world_size())).to(torch.float32)
+    return moments[0], moments[1]
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -318,7 +340,13 @@ class BatchNorm(nn.BatchNorm2d):
     statistics in f32 under bf16 activations, the one-pass batch variance
     ``E[x^2] - E[x]^2`` in train mode, and running statistics updated with
     momentum 0.1 (flax's 0.9) from the *biased* batch variance, where
-    ``torch.nn.BatchNorm2d`` would take the unbiased one."""
+    ``torch.nn.BatchNorm2d`` would take the unbiased one.
+
+    The batch statistics sum each sample's f32 sums in f64
+    (``_batch_moments``). In a ``torch.distributed`` run
+    (``parallel/mesh.py``) they are the global batch's: those sums are
+    all-reduced (``SyncBatchNorm``'s semantics, differentiably), as flax's
+    BatchNorm takes them over a mesh."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -326,8 +354,8 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         x32 = x.to(torch.float32)
         if self.training:
-            mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3)) - torch.square(mean), 0.0)
+            mean, mean_sq = _batch_moments(x32)
+            var = torch.clamp_min(mean_sq - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = 1.0 - self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -17,8 +17,15 @@ package's ``nn.remat(PredictionBlock)``: each stage runs under
 ``quant`` (``int8[_static][_all|_heads]``, inference only) puts int8 convs
 (``layers.Conv(quant=...)``) where the JAX package does (``parse_quant``);
 the state dict stays the unquantized model's. ``calibrate`` runs a forward
-that raises the static modes' scales. The paired heads come with a later
-part of the port.
+that raises the static modes' scales.
+
+``paired_heads=True`` evaluates the plane and depth heads as one
+computation at inference (``models/paired_heads.py``; ``paired_mid`` and
+``paired_final`` pick the forms), on the same state dict. It applies in
+eval mode, without quant and with instance norms; otherwise the plain heads
+run (JAX ``models/pixelwise.py:177-185``). Uncalibrated anchors take the
+paired path too, as in JAX, whose norms read them as 0 just as the plain
+heads do.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ from pixelwiseregression_tpu_torch.models.layers import (
     make_norm,
     max_pool_2x2,
     upsample_nearest_2x_add,
+)
+from pixelwiseregression_tpu_torch.models.paired_heads import (
+    FINALS,
+    MIDS,
+    pairable,
+    paired_heads_apply,
 )
 from pixelwiseregression_tpu_torch.ops import cuda_softargmax
 from pixelwiseregression_tpu_torch.ops.softargmax import soft_argmax_decode_flat
@@ -134,15 +147,20 @@ class PredictionBlock(nn.Module):
     def __init__(self, in_channels: int, joints: int, features: int = 256, level: int = 4,
                  kernel_size: int = 3, norm_method: str = "instance",
                  heatmap_method: str = "softmax", decoder: str = "torch",
-                 quant: str | None = None):
+                 quant: str | None = None, paired_heads: bool = False,
+                 paired_mid: str = "separate", paired_final: str = "separate"):
         super().__init__()
         if decoder not in ("torch", "cuda"):
             raise ValueError(f"unknown decoder: {decoder}")
         if heatmap_method not in ("softmax", "sum"):
             raise ValueError(f"unknown heatmap method: {heatmap_method}")
+        if paired_mid not in MIDS or paired_final not in FINALS:
+            raise ValueError(f"unknown pairing {paired_mid!r}/{paired_final!r}")
         self.heatmap_method = heatmap_method
         self.decoder = decoder
+        self.paired = (paired_mid, paired_final) if paired_heads else None
         _, head_quant, hg_quant = parse_quant(quant)
+        self.head_quant = head_quant
         # the projection stays full precision: from stage 2 on it reads the
         # softmax heatmaps (a tiny dynamic range), and it is cheap
         self.conv = Conv(in_channels, features, 1)
@@ -152,10 +170,19 @@ class PredictionBlock(nn.Module):
         self.depth_regression = _Head(features, joints, kernel_size, norm_method,
                                       temperature=False, quant=head_quant)
 
+    def use_paired(self) -> bool:
+        """Whether this forward takes the paired heads (JAX ``use_paired``)."""
+        return (self.paired is not None and not self.training and self.head_quant is None
+                and pairable(self.plane_regression) and pairable(self.depth_regression))
+
     def forward(self, x, label_img, mask):
         f = self.hourglass(self.conv(x))
-        logits = self.plane_regression(f)
-        depthmaps = self.depth_regression(f)
+        if self.use_paired():
+            logits, depthmaps = paired_heads_apply(f, self.plane_regression,
+                                                   self.depth_regression, *self.paired)
+        else:
+            logits = self.plane_regression(f)
+            depthmaps = self.depth_regression(f)
         b, j, h, wd = logits.shape
         rows = [t.reshape(b, t.shape[1], h * wd).contiguous()
                 for t in (logits, depthmaps, label_img, mask)]
@@ -227,14 +254,16 @@ class PixelwiseRegression(nn.Module):
     and its norms' buffers still move once (``_buffer_contexts``).
 
     ``quant`` (see ``parse_quant``) is for inference: a quantized model
-    refuses a train-mode forward.
+    refuses a train-mode forward. ``paired_heads``, ``paired_mid`` and
+    ``paired_final`` go to every ``PredictionBlock``.
     """
 
     def __init__(self, joints: int, stage: int = 2, features: int = 256, level: int = 4,
                  kernel_size: int = 3, norm_method: str = "instance",
                  heatmap_method: str = "softmax", decoder: str = "torch",
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 quant: str | None = None):
+                 quant: str | None = None, paired_heads: bool = False,
+                 paired_mid: str = "separate", paired_final: str = "separate"):
         super().__init__()
         self.dtype = dtype
         self.remat = remat
@@ -259,7 +288,8 @@ class PixelwiseRegression(nn.Module):
         self.conv = nn.Sequential(*layers)
         self.stages = nn.ModuleList(
             PredictionBlock(features if s == 0 else 2 * joints + 1, joints, features, level,
-                            kernel_size, norm_method, heatmap_method, decoder, self.quant)
+                            kernel_size, norm_method, heatmap_method, decoder, self.quant,
+                            paired_heads, paired_mid, paired_final)
             for s in range(stage)
         )
 

@@ -20,6 +20,17 @@ JAX decoders.
 ``serve_artifact.export_artifact`` exports it, so the artifact computes
 what the live ``Predictor`` computes.
 
+``fullregression=True`` serves a FullRegression checkpoint (the same
+request and reply; no decoder, so no kernel: its last stage's output is
+the uvd). int8 quant is refused there, as in JAX (``serve.py:104-108``).
+
+``data_parallel=True`` serves over every visible card: one replica of the
+model a card, each request batch split on axis 0 (``batch_size`` must
+divide by the replicas) and gathered in order, as the JAX ``Predictor``
+shards it on a ``('data',)`` mesh. Without a visible card it raises;
+``devices=`` names the replicas' devices instead (the CPU tests use two
+CPU replicas). ``export_artifact`` refuses a data-parallel Predictor.
+
 Example:
     pred = Predictor.from_checkpoint("Model/NYU_default_final.pt", "NYU", "cuda:0")
     out = pred.predict(frames, coms)   # -> {"uvd": ..., "xyz": ...}
@@ -30,7 +41,7 @@ the JAX package's msgpack ``.ckpt`` (``train/checkpoint.py``, without jax).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +50,7 @@ from torch import nn
 from pixelwiseregression_tpu_torch.core.camera import recover_uvd
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import SPECS, DatasetSpec
+from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
 from pixelwiseregression_tpu_torch.models.layers import calibrating
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 from pixelwiseregression_tpu_torch.serve_artifact import _build_batch, _device_batch
@@ -54,10 +66,11 @@ class ServingFunction(nn.Module):
     """The on-device serving function: a host batch of tensors
     (``_build_batch``'s fields) -> de-normalized uvd ``[B, J, 3]`` f32."""
 
-    def __init__(self, model: PixelwiseRegression, cfg: PreprocessConfig):
+    def __init__(self, model: nn.Module, cfg: PreprocessConfig):
         super().__init__()
         self.model = model
         self.cfg = cfg
+        self.fullregression = isinstance(model, FullRegression)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         data = preprocess_batch(batch, self.cfg, test_only=True)
@@ -66,21 +79,39 @@ class ServingFunction(nn.Module):
         # cuDNN would then run the whole network channels_last
         img, label_img, mask = (data[k][..., 0].unsqueeze(1)
                                 for k in ("img", "label_img", "mask"))
-        uvd = self.model(img, label_img, mask)[-1][2].to(torch.float32)
+        last = self.model(img, label_img, mask)[-1]
+        uvd = (last if self.fullregression else last[2]).to(torch.float32)
         return recover_uvd(uvd, data["box_size"], data["com"], data["cube"])
 
 
-class Predictor:
-    """Batched raw-frame -> joints prediction on one device."""
+def _replica_devices(devices) -> List[torch.device]:
+    """The data-parallel replicas' devices: ``devices`` as given, else every
+    visible card (none raises)."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    if not torch.cuda.is_available():
+        raise RuntimeError("data_parallel=True serves over the visible CUDA devices: no CUDA "
+                           "device is visible (pass devices= to name the replicas' devices)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
-    def __init__(self, model: PixelwiseRegression, spec: DatasetSpec, cfg: PreprocessConfig,
-                 batch_size: int, device: torch.device, quant_calib_batches: int = 0):
+
+class Predictor:
+    """Batched raw-frame -> joints prediction over ``replicas``
+    (``[(device, ServingFunction)]``; default one, ``model`` on ``device``).
+    A data-parallel Predictor passes one a device, the first holding
+    ``model`` on ``device``."""
+
+    def __init__(self, model: nn.Module, spec: DatasetSpec, cfg: PreprocessConfig,
+                 batch_size: int, device: torch.device, quant_calib_batches: int = 0,
+                 replicas: Optional[List] = None):
         self.model = model
         self.spec = spec
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = device
-        self.serving = ServingFunction(model, cfg)
+        self.data_parallel = replicas is not None
+        self.replicas = replicas or [(device, ServingFunction(model, cfg))]
+        self.serving = self.replicas[0][1]
         static = model.quant is not None and "static" in model.quant
         # predict() calls left that calibrate the static int8 scales
         self.calib_left = quant_calib_batches if static else 0
@@ -103,9 +134,15 @@ class Predictor:
         dtype: torch.dtype = torch.float32,
         quant: Optional[str] = None,
         quant_calib_batches: int = 4,
+        fullregression: bool = False,
+        data_parallel: bool = False,
+        devices: Optional[Sequence] = None,
     ) -> "Predictor":
         """Build from a reference-named state dict (a port or reference
         ``.pt`` state dict, or ``compat.flax_bridge.state_dict_from_flax``'s).
+
+        ``data_parallel=True`` places one replica on each of ``devices``
+        (default: every visible card) and ignores ``device``.
 
         Sets ``torch.backends.cudnn.allow_tf32`` and
         ``torch.backends.cuda.matmul.allow_tf32`` to False, so that an f32
@@ -113,19 +150,47 @@ class Predictor:
         """
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        device = torch.device(device)
         spec = SPECS[dataset]
-        model = PixelwiseRegression(
-            joints=spec.joint_number, stage=stages, features=features, level=level,
-            kernel_size=filter_size, norm_method=norm_method, heatmap_method=heatmap_method,
-            decoder=decoder, dtype=dtype, quant=quant)
+        if fullregression and quant not in (None, "none"):
+            raise ValueError("quant serving is PixelwiseRegression-only (FullRegression convs "
+                             "carry no int8 path)")
+        if data_parallel and quant is not None and "static" in quant:
+            raise ValueError("data_parallel serving takes no static int8 mode: each replica "
+                             "would calibrate its own scales on its own rows")
+        if fullregression:
+            def build():
+                return FullRegression(joints=spec.joint_number, stage=stages,
+                                      label_size=label_size, features=features, level=level,
+                                      norm_method=norm_method, dtype=dtype)
+        else:
+            def build():
+                return PixelwiseRegression(
+                    joints=spec.joint_number, stage=stages, features=features, level=level,
+                    kernel_size=filter_size, norm_method=norm_method,
+                    heatmap_method=heatmap_method, decoder=decoder, dtype=dtype, quant=quant)
         # the reference's plane head also stores its constant COM filter
-        model.load_state_dict({k: v for k, v in state_dict.items() if not k.endswith(".filter")})
-        model.to(device).eval()
+        state_dict = {k: v for k, v in state_dict.items() if not k.endswith(".filter")}
         cfg = PreprocessConfig(fx=spec.camera.fx, fy=spec.camera.fy, halfu=spec.camera.halfu,
                                halfv=spec.camera.halfv, image_size=2 * label_size,
                                label_size=label_size)
-        return cls(model, spec, cfg, batch_size, device, quant_calib_batches)
+        replicas = None
+        if data_parallel:
+            devs = _replica_devices(devices)
+            if batch_size % len(devs):
+                raise ValueError(f"batch_size {batch_size} must divide over {len(devs)} "
+                                 "replicas")
+            replicas = []
+            for d in devs:
+                m = build()
+                m.load_state_dict(state_dict)
+                replicas.append((d, ServingFunction(m.to(d).eval(), cfg)))
+            model, device = replicas[0][1].model, devs[0]
+        else:
+            device = torch.device(device)
+            model = build()
+            model.load_state_dict(state_dict)
+            model.to(device).eval()
+        return cls(model, spec, cfg, batch_size, device, quant_calib_batches, replicas)
 
     @classmethod
     def from_checkpoint(cls, path: str, dataset: str, device, **kwargs) -> "Predictor":
@@ -153,11 +218,18 @@ class Predictor:
         ``[N, J, 3]`` (world mm), both f32 numpy.
         """
         batch, count = _build_batch(self.spec, self.batch_size, frames, coms, cubes)
-        batch = _device_batch(batch, self.device)
+        # each replica runs its rows of the padded batch; every launch is
+        # queued before the first result is read, so the cards overlap
+        rows = self.batch_size // len(self.replicas)
+        outs = []
         with torch.inference_mode():
+            for i, (d, serving) in enumerate(self.replicas):
+                part = _device_batch({k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}, d)
+                if self.calib_left > 0:
+                    with calibrating(serving.model):
+                        serving(part)
+                outs.append(serving(part))
             if self.calib_left > 0:
-                with calibrating(self.model):
-                    self.serving(batch)
                 self.calib_left -= 1
-            uvd = self.serving(batch)[:count].cpu().numpy()
+            uvd = torch.cat([o.cpu() for o in outs])[:count].numpy()
         return {"uvd": uvd, "xyz": self.spec.camera.uvd2xyz(uvd)}

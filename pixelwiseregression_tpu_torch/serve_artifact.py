@@ -78,13 +78,18 @@ def export_artifact(pred, path: str, poly_batch: bool = False) -> Dict:
     returns the header written.
 
     The program is traced on ``pred``'s device with the decoder it was
-    built with (``decoder="cuda"``: the K1 operator). A static int8
+    built with (``decoder="cuda"``: the K1 operator; a FullRegression
+    predictor has no decoder and its program calls no kernel). A
+    data-parallel predictor is refused, as in JAX. A static int8
     predictor must have run its calibration batches first: its scales are
     baked in like any weight. ``poly_batch=True`` exports a symbolic batch
     dimension (``torch.export.Dim``), so a request of any size runs
     unpadded; the default fixes the batch at ``pred.batch_size`` and pads
     requests to it.
     """
+    if pred.data_parallel:
+        raise ValueError("export_artifact: a data_parallel Predictor is not exportable; the "
+                         "artifact serves one device (run artifact replicas instead)")
     if pred.calib_left > 0:
         raise ValueError(
             f"export_artifact: static int8 predictor still has {pred.calib_left} calibration "

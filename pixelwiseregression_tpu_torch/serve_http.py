@@ -315,7 +315,7 @@ def main(argv=None):
                         "first --quant_calib_batches device batches it serves")
     p.add_argument("--quant_calib_batches", type=int, default=4)
     p.add_argument("--fullregression", action="store_true",
-                   help="FullRegression checkpoints: not ported yet (ROADMAP A13)")
+                   help="--ckpt is a FullRegression checkpoint")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="serve on the card (default) or on the CPU")
     p.add_argument("--host", default="0.0.0.0")
@@ -327,8 +327,6 @@ def main(argv=None):
                    help="skip the start-up dummy predict (the first request then pays "
                         "cuDNN's and the kernels' first-call set-up)")
     args = p.parse_args(argv)
-    if args.fullregression:
-        raise NotImplementedError("FullRegression is not ported yet (ROADMAP A13)")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is visible (pass --device cpu to serve on the CPU)")
     device = torch.device("cuda:0" if args.device == "cuda" else "cpu")
@@ -348,7 +346,7 @@ def main(argv=None):
         pred = Predictor.from_checkpoint(
             args.ckpt, args.dataset, device, batch_size=args.batch_size,
             quant=None if args.quant == "none" else args.quant,
-            quant_calib_batches=args.quant_calib_batches)
+            quant_calib_batches=args.quant_calib_batches, fullregression=args.fullregression)
         meta = {"dataset": args.dataset, "batch_size": args.batch_size,
                 "frame_h": pred.spec.frame_h, "frame_w": pred.spec.frame_w,
                 "cube_default": pred.spec.cube_size, "backend": f"live/{device}"}

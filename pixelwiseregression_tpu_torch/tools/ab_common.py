@@ -31,7 +31,12 @@ from typing import Callable
 
 import torch
 
-from pixelwiseregression_tpu_torch.ops import ablate_pieces, cuda_fused, cuda_normrelu
+from pixelwiseregression_tpu_torch.ops import (
+    ablate_pieces,
+    cuda_fused,
+    cuda_normrelu,
+    cuda_softargmax,
+)
 
 # an H100 SXM (NVIDIA's data sheet, dense): device-memory bytes/s and peak
 # operations/s by type
@@ -40,6 +45,7 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 # the kernel counters a tool can move: (module, attribute)
 COUNTERS = {
+    "K1": (cuda_softargmax, "LAUNCHES"),
     "K3": (cuda_fused, "LAUNCHES"),
     "K5": (cuda_normrelu, "LAUNCHES"),
     "copy": (ablate_pieces, "COPY_LAUNCHES"),

@@ -46,10 +46,9 @@ def main(argv=None):
     p.add_argument("--label_size", type=int, default=64)
     p.add_argument("--norm_method", default="instance")
     p.add_argument("--fullregression", action="store_true",
-                   help="FullRegression checkpoints: not ported yet (ROADMAP A13)")
+                   help="--ckpt is a FullRegression checkpoint (no decoder: the program "
+                        "calls no kernel)")
     args = p.parse_args(argv)
-    if args.fullregression:
-        raise NotImplementedError("FullRegression is not ported yet (ROADMAP A13)")
     static = "static" in args.quant
     if static and not args.calib_npz:
         p.error("--quant int8_static needs --calib_npz calibration data")
@@ -64,7 +63,8 @@ def main(argv=None):
     pred = Predictor.from_checkpoint(
         args.ckpt, args.dataset, device, batch_size=args.batch_size, stages=args.stages,
         features=args.features, level=args.level, label_size=args.label_size,
-        norm_method=args.norm_method, quant=None if args.quant == "none" else args.quant)
+        norm_method=args.norm_method, quant=None if args.quant == "none" else args.quant,
+        fullregression=args.fullregression)
     if static:
         d = np.load(args.calib_npz)
         frames, coms = d["frames"], d["coms"]

@@ -19,7 +19,17 @@ A step takes a raw batch already on the device (frames + crop integers,
 as ``utils/synth.py`` and the host records give them), runs the on-device
 preprocessing without autograd, then forward, backward and the optimizer
 step. The eval step computes the mean 3-D joint error on the device and
-returns only small tensors.
+returns only small tensors. ``make_train_step_fullreg`` and
+``make_eval_step_fullreg`` are the FullRegression family's (the JAX
+package's ``cli/train_main.py:354-435``): the uvd loss alone.
+
+In a ``torch.distributed`` run (``parallel/mesh.py``) each rank passes its
+slice of the global batch, and every step computes what the JAX step
+computes over the global batch on a mesh: the denominators count the
+global batch's valid samples, the norms take global statistics, the
+augmentation draws are the global batch's (from a generator seeded alike
+on every rank) sliced to the rank, the gradients are summed over the ranks
+before the optimizer step, and the metrics returned are the global ones.
 """
 
 from __future__ import annotations
@@ -31,7 +41,12 @@ import torch
 from torch import nn
 
 from pixelwiseregression_tpu_torch.core.camera import Camera, recover_uvd
-from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
+from pixelwiseregression_tpu_torch.data.preprocess import (
+    PreprocessConfig,
+    draw_augmentation,
+    preprocess_batch,
+)
+from pixelwiseregression_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,17 +115,12 @@ def stage_losses(results, targets: Dict[str, torch.Tensor], lambda_h: float, lam
     uvd ``[B, J, 3]``); ``targets``: heatmaps and dmaps ``[B, J, H, W]``
     (NCHW, the model's layout), uvd ``[B, J, 3]``. ``sample_weight`` ``[B]``
     (0/1) masks samples out; the mean then divides by the number of the
-    others (at least 1).
+    others (at least 1), over the global batch in a distributed run.
     """
     hm_t = targets["heatmaps"].to(torch.float32)
     dm_t = targets["dmaps"].to(torch.float32)
     uvd_t = targets["uvd"].to(torch.float32)
-    if sample_weight is None:
-        sw = torch.ones(hm_t.shape[0], dtype=torch.float32, device=hm_t.device)
-    else:
-        sw = sample_weight.to(torch.float32)
-    denom_bj = torch.clamp_min(torch.sum(sw), 1.0) * hm_t.shape[1]
-    sw = sw[:, None]
+    sw, denom_bj = _weights(sample_weight, hm_t.shape[0], hm_t.shape[1], hm_t.device)
 
     out = []
     for heatmaps, depthmaps, uvd in results:
@@ -121,6 +131,84 @@ def stage_losses(results, targets: Dict[str, torch.Tensor], lambda_h: float, lam
         l_u = torch.sum(torch.sum((uvd.to(torch.float32) - uvd_t) ** 2, dim=2) * sw) / denom_bj
         out.append((l_h, l_d, l_u))
     return out
+
+
+def _weights(sample_weight, b: int, joints: int, device):
+    """``sample_weight`` (ones if None) as ``[B, 1]`` f32, and the mean's
+    denominator: the global batch's weight sum (at least 1) times J."""
+    if sample_weight is None:
+        sw = torch.ones(b, dtype=torch.float32, device=device)
+    else:
+        sw = sample_weight.to(torch.float32)
+    denom_bj = torch.clamp_min(mesh.all_reduce_sum(torch.sum(sw)), 1.0) * joints
+    return sw[:, None], denom_bj
+
+
+def uvd_losses(results, uvd, sample_weight=None):
+    """The FullRegression family's per-stage uvd losses: ``mean_{B,J} sum_3
+    (uvd - uvd*)^2`` over the weighted samples (JAX ``cli/train_main.py:365-379``)."""
+    uvd_t = uvd.to(torch.float32)
+    sw, denom = _weights(sample_weight, uvd_t.shape[0], uvd_t.shape[1], uvd_t.device)
+    return [torch.sum(torch.sum((u.to(torch.float32) - uvd_t) ** 2, dim=2) * sw) / denom
+            for u in results]
+
+
+def _padded(per_stage):
+    """Per-stage uvd losses as the logger's ``[stages, 3]`` (h, d, u) rows."""
+    u = torch.stack(per_stage).detach()
+    return torch.stack([torch.zeros_like(u), torch.zeros_like(u), u], dim=1)
+
+
+def _global(*tensors):
+    """Each tensor summed over the ranks, in one all-reduce."""
+    if not mesh.active():
+        return tensors
+    flat = mesh.all_reduce_sum(torch.cat([t.detach().reshape(-1).to(torch.float32)
+                                          for t in tensors]))
+    out, offset = [], 0
+    for t in tensors:
+        out.append(flat[offset:offset + t.numel()].reshape(t.shape))
+        offset += t.numel()
+    return out
+
+
+def _local_draws(cfg: PreprocessConfig, augment: bool, batch, generator, draws):
+    """In a distributed run, the global batch's augmentation draws from
+    ``generator``, sliced to this rank; otherwise ``draws`` as given."""
+    if draws is not None or not mesh.active() or not (augment and cfg.augmentation):
+        return draws
+    if generator is None:
+        raise ValueError("the augmented path needs draws or a generator")
+    b = batch["com"].shape[0]
+    full = draw_augmentation(b * mesh.world_size(), generator, batch["com"].device)
+    return {k: mesh.local_slice(v) for k, v in full.items()}
+
+
+def _update(state: TrainState, loss, mark):
+    """Backward, the gradients summed over the ranks, the optimizer and
+    schedule steps."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    mesh.all_reduce_grads(state.model.parameters())
+    mark(3)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    mark(4)
+
+
+def _error_sums(results_uvd, data, camera: Camera, weight):
+    """Per stage, the weighted sum over samples of the mean 3-D joint error (mm)."""
+    box = data["box_size"].to(torch.float32)
+    com = data["com"].to(torch.float32)
+    cube = data["cube"].to(torch.float32)
+    true_xyz = camera.uvd2xyz(recover_uvd(data["uvd"].to(torch.float32), box, com, cube))
+    err_sums = []
+    for uvd in results_uvd:
+        xyz = camera.uvd2xyz(recover_uvd(uvd.to(torch.float32), box, com, cube))
+        err = torch.sqrt(torch.sum((xyz - true_xyz) ** 2, dim=-1))  # [B, J]
+        err_sums.append(torch.sum(torch.mean(err, dim=-1) * weight))
+    return torch.stack(err_sums)
 
 
 def total_loss(every_loss, alpha: float):
@@ -172,8 +260,9 @@ def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
 
         mark(0)
         with torch.no_grad():
-            data = preprocess_batch(batch, preprocess_cfg, augment=augment,
-                                    generator=generator, draws=draws)
+            data = preprocess_batch(
+                batch, preprocess_cfg, augment=augment, generator=generator,
+                draws=_local_draws(preprocess_cfg, augment, batch, generator, draws))
         sw = data["valid"].to(torch.float32)
         if "weight" in batch:
             sw = sw * batch["weight"].to(torch.float32)
@@ -184,14 +273,43 @@ def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
         every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d, sw)
         loss = total_loss(every, loss_cfg.alpha)
         mark(2)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        mark(3)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        mark(4)
-        return {"loss": loss.detach(), "stage_losses": _stacked(every)}
+        _update(state, loss, mark)
+        loss, stage = _global(loss, _stacked(every))
+        return {"loss": loss.detach(), "stage_losses": stage}
+
+    return step
+
+
+def make_train_step_fullreg(preprocess_cfg: PreprocessConfig):
+    """The FullRegression family's train step ``step(state, batch,
+    generator=None, draws=None, events=None)`` (JAX
+    ``make_train_step_fullreg``): always augmented, the uvd loss alone over
+    the valid samples (a ``weight`` field is not read, as in JAX). Returns
+    ``{"loss", "stage_losses" [stages, 3]}`` with the uvd loss in the last
+    column; ``events`` as ``make_train_step``'s."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None,
+             events: Optional[Sequence[torch.cuda.Event]] = None):
+        def mark(i):
+            if events is not None:
+                events[i].record()
+
+        mark(0)
+        with torch.no_grad():
+            data = preprocess_batch(
+                batch, preprocess_cfg, augment=True, generator=generator,
+                draws=_local_draws(preprocess_cfg, True, batch, generator, draws))
+        mark(1)
+        model = state.model.train()
+        per_stage = uvd_losses(model(*model_inputs(data)), data["uvd"],
+                               data["valid"].to(torch.float32))
+        loss = sum(per_stage)
+        mark(2)
+        _update(state, loss, mark)
+        loss, stage = _global(loss, _padded(per_stage))
+        return {"loss": loss.detach(), "stage_losses": stage}
 
     return step
 
@@ -209,26 +327,40 @@ def make_eval_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model.eval()
         with torch.no_grad():
-            data = preprocess_batch(batch, preprocess_cfg)
-            weight = batch.get("weight")
-            if weight is None:
-                weight = torch.ones(data["img"].shape[0], device=data["img"].device)
-            weight = weight.to(torch.float32)
+            data, weight = _eval_data(batch, preprocess_cfg)
             results = model(*model_inputs(data))
             every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d,
                                  weight)
             loss = total_loss(every, loss_cfg.alpha)
+            out = _global(loss, _stacked(every), _error_sums([r[2] for r in results], data,
+                                                              camera, weight),
+                          torch.sum(weight))
+        return dict(zip(("loss", "stage_losses", "err_sum_mm", "count"), out))
 
-            box = data["box_size"].to(torch.float32)
-            com = data["com"].to(torch.float32)
-            cube = data["cube"].to(torch.float32)
-            true_xyz = camera.uvd2xyz(recover_uvd(data["uvd"].to(torch.float32), box, com, cube))
-            err_sums = []
-            for _, _, uvd in results:
-                xyz = camera.uvd2xyz(recover_uvd(uvd.to(torch.float32), box, com, cube))
-                err = torch.sqrt(torch.sum((xyz - true_xyz) ** 2, dim=-1))  # [B, J]
-                err_sums.append(torch.sum(torch.mean(err, dim=-1) * weight))
-        return {"loss": loss, "stage_losses": _stacked(every),
-                "err_sum_mm": torch.stack(err_sums), "count": torch.sum(weight)}
+    return step
+
+
+def _eval_data(batch, preprocess_cfg):
+    data = preprocess_batch(batch, preprocess_cfg)
+    weight = batch.get("weight")
+    if weight is None:
+        weight = torch.ones(data["img"].shape[0], device=data["img"].device)
+    return data, weight.to(torch.float32)
+
+
+def make_eval_step_fullreg(preprocess_cfg: PreprocessConfig, camera: Camera):
+    """The FullRegression family's eval step ``step(state, batch)`` (JAX
+    ``make_eval_step_fullreg``): the weighted uvd losses and mean 3-D joint
+    error, as ``make_eval_step``'s dict (stage losses padded to (0, 0, u))."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model.eval()
+        with torch.no_grad():
+            data, weight = _eval_data(batch, preprocess_cfg)
+            results = model(*model_inputs(data))
+            per_stage = uvd_losses(results, data["uvd"], weight)
+            out = _global(sum(per_stage), _padded(per_stage),
+                          _error_sums(results, data, camera, weight), torch.sum(weight))
+        return dict(zip(("loss", "stage_losses", "err_sum_mm", "count"), out))
 
     return step

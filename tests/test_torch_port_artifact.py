@@ -198,8 +198,12 @@ def test_artifact_roundtrip_matches_predictor(exported, tmp_path):
 def test_artifact_export_guards(state, tmp_path):
     """A static int8 predictor with calibration batches pending refuses to
     export (it would bake zero scales); once calibrated, it exports, and the
-    artifact answers as the frozen predictor does (exactly).
-    (``data_parallel`` waits for ROADMAP A14.)"""
+    artifact answers as the frozen predictor does (exactly). A
+    data-parallel predictor refuses to export, as in JAX."""
+    dp = Predictor.from_state_dict(state, "MSRA", "cpu", batch_size=2, data_parallel=True,
+                                   devices=["cpu", "cpu"], **ARCH)
+    with pytest.raises(ValueError, match="data_parallel"):
+        export_artifact(dp, str(tmp_path / "dp.pwrsrv"))
     pq = _pred(state, batch_size=2, quant="int8_static", quant_calib_batches=2)
     with pytest.raises(ValueError, match="calibration batches pending"):
         export_artifact(pq, str(tmp_path / "q.pwrsrv"))

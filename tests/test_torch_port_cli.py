@@ -36,6 +36,8 @@ from pixelwiseregression_tpu_torch.cli.train_main import run_training as port_tr
 from pixelwiseregression_tpu_torch.compat.flax_bridge import state_dict_from_flax
 from pixelwiseregression_tpu_torch.data import preprocess as tpre
 from pixelwiseregression_tpu_torch.models import layers as tl
+from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
+from pixelwiseregression_tpu_torch.parallel import mesh
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression as PortModel
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.train import checkpoint as tck
@@ -424,9 +426,10 @@ def test_parsers_keep_the_jax_flags_and_defaults(kind, msra):
 
 def test_model_kwargs_decoder_names_and_unported_options(monkeypatch):
     """pallas/xla name the cuda/torch decoders; --mixed_precision is bf16;
-    --quant reaches the model, which refuses to train; FullRegression,
-    multi-process training and --device cuda without a card raise, naming
-    what is missing."""
+    --quant reaches the model, which refuses to train; the FullRegression
+    kwargs build the FullRegression model (no decoder flags); a process
+    counts as launched by torchrun only with both WORLD_SIZE and RANK set;
+    --device cuda without a card raises, naming what is missing."""
     args = tcommon.make_train_parser(msra=True).parse_args(
         ["--decoder", "xla", "--mixed_precision", "--remat", "--filter_size", "5"])
     kw = tcommon.model_kwargs_from_args(args, 21)
@@ -445,14 +448,20 @@ def test_model_kwargs_decoder_names_and_unported_options(monkeypatch):
     assert qkw["quant"] == "int8_static" and kw["quant"] is None
     with pytest.raises(ValueError, match="inference-only"):
         PortModel(**qkw).train()(*(torch.zeros(1, 1, s, s) for s in (128, 64, 64)))
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_training(args, "MSRA", fullregression=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_inference(targs, "MSRA", fullregression=True)
+    fargs = tcommon.make_train_parser(msra=True, fullregression=True).parse_args(
+        ["--mixed_precision", "--stages", "1", "--features", "16"])
+    fkw = tcommon.model_kwargs_from_args(fargs, 21, fullregression=True)
+    assert set(fkw) == {"joints", "stage", "label_size", "features", "level", "norm_method",
+                        "dtype", "remat"} and fkw["dtype"] == torch.bfloat16
+    assert isinstance(FullRegression(**fkw).stages[0].regression[4], torch.nn.Linear)
+    assert not hasattr(fargs, "heatmap_method") and not hasattr(fargs, "alpha")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A14"):
-        port_training(args, "MSRA", subject=0)
+    monkeypatch.delenv("RANK", raising=False)
+    assert not mesh.launched()
+    monkeypatch.setenv("RANK", "0")
+    assert mesh.launched()
     monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.delenv("RANK")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcommon.resolve_device(args)

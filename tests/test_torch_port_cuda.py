@@ -1093,3 +1093,127 @@ def test_test_cli_kernel_decoder_matches_the_plain_decoder(device, msra_root, tm
     assert results["cuda"].shape == results["torch"].shape == (4, 63)
     assert np.isfinite(results["cuda"]).all()
     np.testing.assert_allclose(results["cuda"], results["torch"], rtol=0, atol=1e-2)
+
+
+# --------------------------------------------------------------------------- #
+# the paired heads, FullRegression, multi-process and data-parallel serving
+# --------------------------------------------------------------------------- #
+
+
+def _calibrated_state(model, device, b=2, side=32):
+    """``model``'s state after one train-mode forward (anchors calibrated)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    xs = [torch.rand(b, 1, s, s, generator=g) for s in (2 * side, side, side)]
+    with torch.no_grad():
+        model.train()(*xs)
+    return model.eval().state_dict(), [x.to(device) for x in xs]
+
+
+@pytest.mark.parametrize("mid,final", [("separate", "blockdiag"), ("grouped", "blockdiag"),
+                                       ("grouped", "separate"), ("separate", "separate")])
+def test_paired_heads_on_the_card_match_the_plain_heads(device, mid, final):
+    """f32, instance_anchored (calibrated), two stages: the paired model's
+    uvd within 1e-4 of the uvd scale of the plain model's on the card, K1
+    once a stage for each forward."""
+    torch.manual_seed(3)
+    kw = dict(stage=2, features=32, level=2, norm_method="instance_anchored", decoder="cuda")
+    state, xs = _calibrated_state(PixelwiseRegression(14, **kw), device)
+    plain = PixelwiseRegression(14, **kw).to(device)
+    plain.load_state_dict(state)
+    paired = PixelwiseRegression(14, paired_heads=True, paired_mid=mid, paired_final=final,
+                                 **kw).to(device)
+    paired.load_state_dict(state)
+    assert all(b.use_paired() for b in paired.eval().stages)
+    with torch.no_grad():
+        want = plain.eval()(*xs)[-1][2]
+        before = tcuda.LAUNCHES
+        got = paired(*xs)[-1][2]
+        torch.cuda.synchronize()
+    assert tcuda.LAUNCHES - before == 2
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("norm", ["instance_anchored", "batch"])
+def test_fullregression_on_the_card_matches_the_cpu(device, norm):
+    """f32 FullRegression (two stages, label_size 32): per stage uvd on the
+    card within 1e-4 of the CPU's scale; no kernel is launched (the family
+    has no decoder)."""
+    torch.manual_seed(4)
+    from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
+
+    model = FullRegression(14, stage=2, label_size=32, features=16, norm_method=norm)
+    state, xs = _calibrated_state(model, "cpu")
+    card = FullRegression(14, stage=2, label_size=32, features=16, norm_method=norm).to(device)
+    card.load_state_dict(state)
+    with torch.no_grad():
+        want = model.eval()(*xs)
+        before = tcuda.LAUNCHES
+        got = card.eval()(*(x.to(device) for x in xs))
+        torch.cuda.synchronize()
+    assert tcuda.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_data_parallel_predictor_on_the_visible_cards(device):
+    """``Predictor(data_parallel=True)`` with no ``devices``: one replica a
+    visible card; the uvd equals a single card Predictor's within 1e-4 px/mm
+    and K1 runs once a stage a replica."""
+    torch.manual_seed(0)
+    state = PixelwiseRegression(21, stage=1, features=16, level=1).state_dict()
+    arch = dict(stages=1, features=16, level=1, label_size=32)
+    n = torch.cuda.device_count()
+    single = Predictor.from_state_dict(state, "MSRA", device, batch_size=2 * n, **arch)
+    dp = Predictor.from_state_dict(state, "MSRA", device, batch_size=2 * n,
+                                   data_parallel=True, **arch)
+    assert [d for d, _ in dp.replicas] == [torch.device("cuda", i) for i in range(n)]
+    raw = make_synthetic_raw_batch(2 * n, 240, 320, 21, fx=241.42, fy=241.42, cube=150.0,
+                                   com_z=400.0, seed=3)
+    want = single.predict(raw["frame"], raw["com"])["uvd"]
+    before = tcuda.LAUNCHES
+    got = dp.predict(raw["frame"], raw["com"])["uvd"]
+    assert tcuda.LAUNCHES - before == n
+    assert np.abs(got - want).max() <= 1e-4
+
+
+def test_two_ranks_on_one_card_through_gloo(device, tmp_path):
+    """Two ranks of tests/torch_port_ddp_worker.py on this card with gloo
+    (NCCL refuses two ranks on one GPU): one PixelwiseRegression train
+    step each, K1 and K2 once a stage in each rank, both ranks' states
+    equal."""
+    import socket
+
+    torch.manual_seed(1)
+    kw = dict(joints=14, stage=2, features=16, level=2, norm_method="batch", decoder="cuda")
+    raw = make_synthetic_raw_batch(4, 480, 640, 14, fx=588.03, fy=587.07, cube=150.0,
+                                   com_z=450.0, seed=2)
+    cam = dict(fx=588.03, fy=587.07, halfu=320.0, halfv=240.0)
+    case = {"kind": "pixelwise", "model": kw, "state": PixelwiseRegression(**kw).state_dict(),
+            "batch": {k: torch.from_numpy(v) for k, v in raw.items()},
+            "cfg": dict(cam, image_size=64, label_size=32, using_rotation=True),
+            "eval_cfg": dict(cam, image_size=64, label_size=32), "camera": cam,
+            "loss": dict(lambda_h=1.0, lambda_d=0.01, alpha=1.0)}
+    path = str(tmp_path / "cases.pt")
+    torch.save({"cases": [case], "seed": 7}, path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_ddp_worker.py")
+    procs = [subprocess.Popen([sys.executable, worker, path, str(tmp_path / f"o{r}.pt"), str(r),
+                               "2", str(port), "cuda", "gloo"], stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs = [torch.load(tmp_path / f"o{r}.pt", weights_only=False)["results"][0] for r in range(2)]
+    for out in outs:
+        assert out["launches"] == {"K1": 2, "K2": 2}
+        assert np.isfinite(float(out["train"]["loss"]))
+    for name, t in outs[0]["state"].items():
+        assert torch.equal(t, outs[1]["state"][name]), name

@@ -185,7 +185,9 @@ def test_http_dynamic_batching_coalesces(state):
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     """``export_model`` and ``serve_http`` default to ``--device cuda`` and
-    exit non-zero with no card visible."""
+    exit non-zero with no card visible; ``serve_http --fullregression
+    --device cpu`` goes on to load the checkpoint (a missing one raises
+    there; tests/test_torch_port_fullreg.py serves a real one)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         export_model.main(["--ckpt", "x.pt", "--dataset", "MSRA", "--output",
@@ -194,9 +196,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     with pytest.raises(SystemExit) as e:
         serve_http.main(["--artifact", "x.pwrsrv"])
     assert e.value.code != 0
-    with pytest.raises(NotImplementedError, match="A13"):
-        serve_http.main(["--ckpt", "x.pt", "--dataset", "MSRA", "--fullregression",
-                         "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        serve_http.main(["--ckpt", str(tmp_path / "x.pt"), "--dataset", "MSRA",
+                         "--fullregression", "--device", "cpu"])
 
 
 def test_export_then_serve_on_the_cpu(state, tmp_path):

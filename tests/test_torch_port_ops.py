@@ -553,6 +553,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     new = {"cli", "cli.common", "cli.check_dataset", "cli.train_main", "cli.test_main",
            "cli.train", "cli.train_msra", "cli.test", "cli.test_msra", "native",
            "train.checkpoint", "utils.seeding", "utils.viz", "data.sources", "data.loader",
-           "serve_artifact", "serve_http", "tools.export_model"}
+           "serve_artifact", "serve_http", "tools.export_model", "models.fullregression",
+           "models.paired_heads", "parallel", "parallel.mesh", "compat.verify_parity",
+           "cli.train_fullregression", "cli.test_fullregression", "tools.bench_paired_model"}
     assert {pkg + m for m in new} <= mods, sorted({pkg + m for m in new} - mods)
     assert len(mods) >= 52  # 42 modules + 10 subpackages
