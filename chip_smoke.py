@@ -125,12 +125,27 @@ gradient 1e-1 relative) and both ranks' states equal, times three more
 steps of each, then runs train_msra under torchrun --nproc_per_node 1
 (NCCL) for an epoch.
 
+Then phase_scripts, the last scripts of the JAX package through the port's
+tools and viewers, each with the kernel counters set to 0 just before it
+and read just after: profile_train_components on the train step at full
+width (b128, stage 2, bf16, 3 traced steps; its component table printed,
+summing to the trace's device time within 1%, no kernel unattributed, K1
+in [fwd] and K2 in [bwd] of each stage, each stage's hourglass and heads
+both ways, and the time by module class and kernel group), profile_components,
+profile_train, profile_infer, train_ab, train_remat_ab, bench_norm_variants
+and bench_upsample_add at reduced sizes, headconv_bwd_split at its default
+shape (its two summary lines printed), stage2_amplification on the MSRA
+fixture (one seed, 20 steps), check_data_layout on it, bench_http against
+serve_http over a live full-width Predictor, and test_samples' and get_sfr's
+compute functions on a small random-weight checkpoint (nothing is drawn).
+
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
 K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
 (K3's norm_kernel, K5's nr_kernel) or in the decoder's (K1, K2 and the
 dlabel kernel).
 With --profile it builds the kernels and profiles the train step of 5.
-instead (phase_profile): the breakdown that PERF.md's "Where the time goes"
+instead (phase_profile, through tools/profile_train.py; the JAX tools'
+synthetic raw frames): the breakdown that PERF.md's "Where the time goes"
 quotes; then K4's tail kernel's device time a ResBlock in one wave of
 blocks (_tail_per_block), and the fused engine's forward at batch 64 by
 kernel, with K4's share (_engine_by_kernel). With --decoder it builds the
@@ -143,7 +158,8 @@ visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
 (serve, train, cli_train, cli_test, artifact, http, int8_serve,
 unit_engine, fused_engine, tools, bench, paired_serve, paired_tool,
-ddp_train a rank, fullreg_train, fullreg_test, fullreg_artifact),
+ddp_train a rank, fullreg_train, fullreg_test, fullreg_artifact, and
+scripts_<tool> for each script of phase_scripts that launched it),
 their times, their plain versions' and a library call's, and their bounds:
 the larger of the bytes they must move over 3.35 TB/s and their operations
 over the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
@@ -211,19 +227,6 @@ ENGINE_GAP_BOUND = 2e-2
 # and ~5e-2 (fused, whose K4 applies its norms in bf16) at stage 1, and
 # 0.05-0.3 at stage 2
 MODEL_GAP_BOUND = 5e-2
-# --profile: device time by kernel name, lowercased; the first group whose
-# substring a name holds takes it, the rest is "other"
-PROFILE_GROUPS = (
-    ("decoder K1 + K2", ("softargmax", "dlabel_kernel")),
-    ("cuDNN layout NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
-    ("convolution", ("conv", "xmma", "cutlass", "gemm", "cudnn", "sm90")),
-    ("optimizer (foreach)", ("multi_tensor_apply",)),
-    ("reduction", ("reduce",)),
-    ("cast / copy", ("copy_kernel",)),
-    ("elementwise", ("elementwise",)),
-)
-
-
 def _median_ms(fn, runs=7, iters=20):
     """Median over ``runs`` of the mean time of ``iters`` back-to-back calls, by CUDA events."""
     return _interleaved_ms([fn], runs, iters)[0][0]
@@ -1543,81 +1546,238 @@ def phase_ddp(cs, device, smi_line, data, work):
     return out
 
 
-def phase_profile(device, steps=3):
-    """``--profile``: the main path's train step (the configuration of
-    phase_train, kernel decoder) under torch.profiler, after three warm-up
-    steps. Prints the wall time per step with and without the profiler, the
-    device ops and device time per step, that time by the kernel-name groups
-    of PROFILE_GROUPS and by the largest kernels, the device's idle share
-    over the profiled steps read from the trace's own busy timeline (the
-    union of its device ops, from the first one's start to the last one's
-    end), and the peak memory allocated."""
-    import tempfile
+# the last scripts of the JAX package (phase_scripts): the tools' reduced
+# arguments (the profile of the train step at full width, the head unit at
+# its default shape)
+SCRIPT_STEPS = 3              # profile_train_components: traced steps, after 2 warm-up steps
+SCRIPT_AMP_STEPS = 20         # stage2_amplification: training steps of its one seed
+SCRIPT_SAMPLES = 3            # test_samples: samples
+SCRIPT_TABLE_BOUND = 1e-2     # the component table's sum vs the trace's device time (1%)
+SCRIPT_TIMED = ["--rounds", "3"]
+SCRIPT_TOOLS = (
+    ("profile_components", ["--batch_size", "64", "--iters", "2"]),
+    ("profile_train", ["--batch_size", "32", "--iters", "2", "--warmup", "2",
+                       "--wall_steps", "3", "--norm_method", "instance_anchored"]),
+    ("profile_infer", ["--batch_size", "64", "--iters", "2", "--warmup", "2",
+                       "--wall_steps", "3"]),
+    ("headconv_bwd_split", ["--iters", "3", *SCRIPT_TIMED]),
+    ("train_ab", ["--batch", "32", "--iters", "2", *SCRIPT_TIMED]),
+    ("train_remat_ab", ["--batch", "32", "--iters", "2", *SCRIPT_TIMED]),
+    ("bench_norm_variants", ["--batch", "64", "--iters", "4", *SCRIPT_TIMED]),
+    ("bench_upsample_add", ["--batch", "64", "--iters", "8", *SCRIPT_TIMED]),
+)
+# the K1 and K2 launches each tool's run must make (a profile tool's every
+# call: warm-up, timed and traced; a timed tool's are checked by ab_common.run)
+SCRIPT_LAUNCHES = {
+    "profile_train_components": {"K1": STAGES * (2 + SCRIPT_STEPS),
+                                 "K2": STAGES * (2 + SCRIPT_STEPS)},
+    "profile_components": {"K1": STAGES * 3},
+    "profile_train": {"K1": STAGES * 7, "K2": STAGES * 7},
+    "profile_infer": {"K1": STAGES * 7},
+}
 
-    from torch.profiler import ProfilerActivity, profile
 
+def _scripts_counts():
+    from pixelwiseregression_tpu_torch.tools import ab_common
+
+    for mod, attr in ab_common.COUNTERS.values():
+        setattr(mod, attr, 0)
+    return ab_common
+
+
+def phase_scripts(cs, device, smi_line, data, work):
+    """The last scripts of the JAX package, each through its port's function
+    with every kernel counter set to 0 just before it and read just after:
+    profile_train_components at full width (the train step, NYU-shaped raw
+    frames, stages 2, bf16, batch 128, instance_anchored, 3 traced steps:
+    the component table must sum to the trace's device time within 1%, leave
+    no kernel unattributed, put K1's kernels in [fwd] and K2's in [bwd] of
+    each stage, and show each stage's hourglass and heads both ways), the
+    other profile and timing tools at reduced sizes (headconv_bwd_split at
+    its default shape), stage2_amplification on the MSRA fixture (one seed),
+    check_data_layout on it, bench_http against serve_http over a live
+    Predictor in this process, and test_samples and get_sfr's compute
+    functions on a small random-weight checkpoint (nothing is drawn).
+    Returns the K1 and K2 launches by tool."""
+    import importlib
+    import threading
+
+    from pixelwiseregression_tpu_torch.cli import get_sfr, test_samples
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
-    from pixelwiseregression_tpu_torch.train.loop import LossConfig, make_train_step
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.serve import Predictor
+    from pixelwiseregression_tpu_torch.serve_http import make_server
+    from pixelwiseregression_tpu_torch.tools import (bench_http, check_data_layout,
+                                                     profile_train_components,
+                                                     stage2_amplification)
+    from pixelwiseregression_tpu_torch.train.checkpoint import save_checkpoint
 
-    torch.manual_seed(SEED)
-    state0 = PixelwiseRegression(J, stage=STAGES, features=128, level=4, kernel_size=3,
-                                 norm_method="instance_anchored").state_dict()
-    state = _train_setup(device, "cuda", torch.bfloat16, state0, TRAIN_BATCH)
-    step = make_train_step(_train_cfg(), LossConfig(), augment=True)
-    batch = _raw_batch(device, TRAIN_BATCH, SEED + 20)
-    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    launches = {}
 
-    def run(n):
-        torch.cuda.synchronize()
+    def counted(name, want, fn):
+        """Run fn with every counter at 0; its launches must be ``want``
+        (a dict, or a function of fn's result giving one)."""
+        ab_common = _scripts_counts()
         t = time.perf_counter()
-        for _ in range(n):
-            step(state, batch, generator=gen)
+        out = fn()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) / n * 1e3
+        got = {k: n for k, n in ab_common.read_counts().items() if n}
+        print(f"scripts {name}: launches {got} in {time.perf_counter() - t:.1f} s", flush=True)
+        want = want(out) if callable(want) else want
+        assert got == {k: n for k, n in want.items() if n}, (name, got, want)
+        launches[name] = {k: got.get(k, 0) for k in ("K1", "K2")}
+        _free()
+        return out
 
-    run(3)
-    wall_ms = run(10)
-    torch.cuda.reset_peak_memory_stats(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prof_wall_ms = run(steps)
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    ops = sorted((float(e["ts"]), float(e["dur"]), e["name"]) for e in events
-                 if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    assert ops, "the trace holds no device op"
+    def reported(res):
+        """The launches a timed tool's runs report (train_ab: a run a batch size)."""
+        runs = list(res.values()) if "ms" not in res else [res]
+        return {k: sum(r["launches"].get(k, 0) for r in runs)
+                for k in set().union(*(r["launches"] for r in runs))}
 
-    busy, (lo, hi) = 0.0, ops[0][:2]
-    hi += lo
-    for ts, dur, _ in ops:  # union of the device ops' intervals, in us
-        if ts > hi:
-            busy, lo, hi = busy + hi - lo, ts, ts + dur
-        else:
-            hi = max(hi, ts + dur)
-    busy += hi - lo
-    span = max(ts + dur for ts, dur, _ in ops) - ops[0][0]
-    device_ms = sum(dur for _, dur, _ in ops) / 1e3 / steps
+    # the train step by component, full width
+    out = counted("profile_train_components", SCRIPT_LAUNCHES["profile_train_components"],
+                  lambda: profile_train_components.main(
+                      ["--iters", str(SCRIPT_STEPS), "--warmup", "2", "--top", "60"]))
+    prof, comps = out["profile"], out["components"]
+    table = sum(us for us, _ in comps.values())
+    print(f"scripts component table: {prof.total_us / 1e3 / SCRIPT_STEPS:.3f} ms/step of device "
+          f"time, components sum {table / 1e3 / SCRIPT_STEPS:.3f}, unattributed "
+          f"{len(prof.unattributed)} kernels; {smi_line}", flush=True)
+    assert abs(table - prof.total_us) <= SCRIPT_TABLE_BOUND * prof.total_us, (table, prof.total_us)
+    assert not prof.unattributed, [leaf.name for leaf in prof.unattributed[:5]]
+    decoder = {}
+    for leaf in prof.leaves:
+        if "softargmax" in leaf.name:
+            kernel = "K2" if "bwd" in leaf.name else "K1"
+            decoder.setdefault(kernel, set()).add(f"[{leaf.kind}] {leaf.where}")
+    stages = [f"stages.{s}" for s in range(STAGES)]
+    assert decoder == {"K1": {f"[fwd] {s}" for s in stages},
+                       "K2": {f"[bwd] {s}" for s in stages}}, decoder
+    for s in stages:
+        for part in ("hourglass", "plane_regression", "depth_regression"):
+            for kind in ("fwd", "bwd"):
+                assert f"[{kind}] {s}.{part}" in comps, (kind, s, part)
+
+    # the other profile and timing tools, reduced
+    for name, argv in SCRIPT_TOOLS:
+        tool = importlib.import_module(f"pixelwiseregression_tpu_torch.tools.{name}")
+        print(f"scripts {name} {' '.join(argv)}:", flush=True)
+        res = counted(name, SCRIPT_LAUNCHES.get(name, reported), lambda: tool.main(argv))
+        if name.startswith("profile_"):
+            assert not res["profile"].unattributed, name
+        if name == "headconv_bwd_split":
+            for line in res["summary"]:
+                print(f"scripts head unit split:{line}; {smi_line}", flush=True)
+    assert launches["train_ab"]["K2"] > 0 and launches["train_remat_ab"]["K1"] > 0
+    assert launches["bench_norm_variants"]["K1"] > 0
+    assert launches["headconv_bwd_split"] == launches["bench_upsample_add"] == {"K1": 0, "K2": 0}
+
+    # stage 2's amplification on trained weights, on the MSRA fixture
+    amp = counted("stage2_amplification",
+                  {"K1": STAGES * (SCRIPT_AMP_STEPS + 5), "K2": STAGES * SCRIPT_AMP_STEPS},
+                  lambda: stage2_amplification.main(
+                      ["--seeds", "1", "--steps", str(SCRIPT_AMP_STEPS), "--dataset", "MSRA",
+                       "--data_path", data]))
+    for row in amp["seeds"]:
+        assert all(math.isfinite(g) for gains in row["gains"].values() for d in gains.values()
+                   for g in d)
+        print(f"scripts stage2_amplification: gap card vs cpu (mm) {row['gap_mm']}; gains "
+              f"{row['gains']}; {smi_line}", flush=True)
+
+    problems, decoded = check_data_layout.check("MSRA", data)
+    assert not problems and len(decoded) == 2, (problems, decoded)
+    print(f"scripts check_data_layout: {decoded}", flush=True)
+
+    # bench_http against the HTTP server over a live full-width Predictor
+    spec = SPECS["NYU"]
+    torch.manual_seed(SEED + 40)
+    state = PixelwiseRegression(spec.joint_number, stage=STAGES, features=128, level=4,
+                                kernel_size=3).state_dict()
+    pred = Predictor.from_state_dict(state, "NYU", device, batch_size=8, stages=STAGES)
+    meta = {"dataset": "NYU", "batch_size": 8, "frame_h": spec.frame_h, "frame_w": spec.frame_w,
+            "cube_default": spec.cube_size, "backend": f"live[{device}]"}
+    srv = make_server(pred, meta, "127.0.0.1", 0, access_log=False, linger_s=0.005)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        ab_common = _scripts_counts()
+        res = bench_http.run(url, threads=4, requests=4, size=2)
+        k1 = ab_common.read_counts()["K1"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.stop()
+        server.join(timeout=60)
+    print(f"scripts bench_http: requests {res['requests']} ({res['errors']} errors), "
+          f"{res['frames_per_s']:.1f} frames/s, latency {res['latency_ms']}, device_calls "
+          f"{res['device_calls']}, batch_fill {res['batch_fill']:.2f}; K1 {k1}; {smi_line}",
+          flush=True)
+    assert res["requests"] == 16 and res["errors"] == 0, res
+    assert k1 == STAGES * (res["device_calls"] + 1), (k1, res["device_calls"])
+    launches["bench_http"] = {"K1": k1, "K2": 0}
+    del pred
+    _free()
+
+    # the viewers' compute functions on a small random-weight checkpoint
+    viewer = os.path.join(work, "viewer")
+    os.makedirs(os.path.join(viewer, "Model"))
+    torch.manual_seed(SEED + 41)
+    small = PixelwiseRegression(21, stage=STAGES, features=16, level=2)
+    for name in ("MSRA_default_subject0_final.pt", "MSRA_sfr_final.pt"):
+        save_checkpoint(os.path.join(viewer, "Model", name), small)
+    arch = ["--dataset", "MSRA", "--data_path", data, "--label_size", "32", "--features", "16",
+            "--level", "2", "--stages", str(STAGES)]
+    prev = os.getcwd()
+    os.chdir(viewer)
+    try:
+        got = counted("test_samples", {"K1": STAGES * SCRIPT_SAMPLES}, lambda: list(
+            test_samples.predictions(test_samples.parse_args(
+                arch + ["--subject", "0", "--max_samples", str(SCRIPT_SAMPLES)]))))
+        assert len(got) == SCRIPT_SAMPLES and all(np.isfinite(u).all() and u.shape == (1, 21, 3)
+                                                  for _, _, u in got)
+        _, rows = counted("get_sfr", {"K1": STAGES}, lambda: get_sfr.maps(get_sfr.parse_args(
+            arch + ["--suffixes", "detection", "sfr"])))
+        assert [r[0] for r in rows] == ["sfr"] and all(np.isfinite(m).all() for m in rows[0][1:])
+    finally:
+        os.chdir(prev)
+    print(f"scripts: K1 and K2 launches by tool {launches}", flush=True)
+    return launches
+
+
+def phase_profile(device, steps=3):
+    """``--profile``: the main path's train step (phase_train's width:
+    NYU-shaped raw frames, stages 2, features 128, level 4,
+    instance_anchored, bf16, batch 128, the kernel decoder) under
+    torch.profiler, after three warm-up steps and ten timed ones, by
+    tools/profile_train.py's ``profile_calls``. Prints the wall time per
+    step with and without the profiler, the device ops and device time per
+    step, that time by the kernel-name groups of tools/profile_common.py's
+    GROUPS and by the largest kernels, the device's idle share over the
+    profiled steps read from the trace's own busy timeline (the union of
+    its device ops, from the first one's start to the last one's end), and
+    the peak memory allocated."""
+    from pixelwiseregression_tpu_torch.tools import ab_common, profile_common, profile_train
+
+    call, _ = ab_common.train_step_call(device, TRAIN_BATCH, J, STAGES, 128, 4,
+                                        "instance_anchored", "bf16", "cuda", seed=SEED)
+    out = profile_train.profile_calls(call, device, steps, warmup=3, wall_steps=10)
+    prof = out["profile"]
+    assert prof.leaves, "the trace holds no device op"
+    device_ms = prof.total_us / 1e3 / steps
     print(f"profile train NYU stages={STAGES} bf16 batch={TRAIN_BATCH} decoder=cuda: "
-          f"{wall_ms:.2f} ms/step unprofiled (10 steps), {prof_wall_ms:.2f} ms/step profiled "
-          f"({steps} steps); {len(ops) / steps:.0f} device ops/step, device time "
-          f"{device_ms:.2f} ms/step; device idle share {1 - busy / span:.4f} of the profiled "
-          f"span ({span / 1e3 / steps:.2f} ms/step); peak memory allocated {peak_gib:.2f} GiB")
-
-    groups, kernels = {}, {}
-    for _, dur, name in ops:
-        low = name.lower()
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in low for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + dur
-        n, t = kernels.get(name, (0, 0.0))
-        kernels[name] = (n + 1, t + dur)
-    for group, dur in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"profile group {group}: {dur / 1e3 / steps:.2f} ms/step "
-              f"({dur / 1e3 / steps / device_ms:.4f} of device time)")
-    for name, (n, dur) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]:
-        print(f"profile kernel {dur / 1e3 / steps:.3f} ms/step in {n / steps:.0f} ops: {name[:160]}")
+          f"{out['wall_ms']:.2f} ms/step unprofiled (10 steps), {out['profiled_wall_ms']:.2f} "
+          f"ms/step profiled ({steps} steps); {len(prof.leaves) / steps:.0f} device ops/step, "
+          f"device time {device_ms:.2f} ms/step; device idle share "
+          f"{1 - out['busy_us'] / out['span_us']:.4f} of the profiled span "
+          f"({out['span_us'] / 1e3 / steps:.2f} ms/step); peak memory allocated "
+          f"{out['peak_gib']:.2f} GiB")
+    for group, us in profile_train.groups(prof).items():
+        print(f"profile group {group}: {us / 1e3 / steps:.2f} ms/step "
+              f"({us / 1e3 / steps / device_ms:.4f} of device time)")
+    for name, (us, n) in list(profile_common.by_name(prof).items())[:15]:
+        print(f"profile kernel {us / 1e3 / steps:.3f} ms/step in {n / steps:.0f} ops: {name[:160]}")
 
 
 def _bound(flops, nbytes, kind):
@@ -2638,6 +2798,8 @@ def main() -> int:
         _free()
         paired = phase_paired(cs, device, smi_line)
         ddp = phase_ddp(cs, device, smi_line, data, work)
+        _free()
+        scripts = phase_scripts(cs, device, smi_line, data, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     _free()
@@ -2709,7 +2871,9 @@ def main() -> int:
                               "ddp_train": [r["K1"] for r in ddp["launches"]],
                               "fullreg_train": fullreg["fullreg_train"]["K1"],
                               "fullreg_test": fullreg["fullreg_test"]["K1"],
-                              "fullreg_artifact": fullreg["artifact"]},
+                              "fullreg_artifact": fullreg["artifact"],
+                              **{f"scripts_{tool}": n["K1"] for tool, n in scripts.items()
+                                 if n["K1"]}},
          "max_abs_err": main_fwd["max_abs_err"], "ms": fwd_row["call_ms"], **fwd_row,
          "plain_ms": main_fwd["plain_ms"], "library_ms": None,
          "by_path": {path: timing(f"fwd {path}") for path, *_ in DECODER_SHAPES},
@@ -2726,7 +2890,9 @@ def main() -> int:
          "launches_by_path": {"train": train_launches[1], "cli_train": cli_launches["K2"],
                               "bench": bench_launches["K2"],
                               "ddp_train": [r["K2"] for r in ddp["launches"]],
-                              "fullreg_train": fullreg["fullreg_train"]["K2"]},
+                              "fullreg_train": fullreg["fullreg_train"]["K2"],
+                              **{f"scripts_{tool}": n["K2"] for tool, n in scripts.items()
+                                 if n["K2"]}},
          "kernel_launches_by_path": {"train": train_launches[2],
                                      "cli_train": cli_launches["K2_kernels"],
                                      "bench": bench_launches["K2_kernels"]},
