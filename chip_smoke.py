@@ -35,6 +35,13 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
    per stage; its first step is repeated with the plain decoder from the
    same weights, batch and draws; steps/s, frames/s and the step's parts
    are timed for both decoders in turns; one eval step reports mean mm;
+   then (phase_train_preprocessed) the same model, weights, batch and first
+   draws through the steps on preprocessed batches (make_train_step(None)):
+   3 steps, K1 and K2 once a stage a step, the first step held against the
+   raw first step (loss 1e-6, whole gradient 1e-2 relative) and against the
+   plain decoder's; make_eval_step(None) against the raw eval step
+   (err_sum_mm 1e-5 relative, count exact); cv2's fixed-point warp
+   (quantize=True) card vs CPU at 480x640 and 128x128, bit-equal;
 6. the CLI's f32 default (batch 32) takes three steps through the kernels;
 7. one f32 train step of a small model on the card against the CPU;
 8. the CLI path (phase_cli), as a user runs it: the MSRA fixture
@@ -156,7 +163,7 @@ one in turns, DIR, this, this, DIR, each in its own process.
 The script exits non-zero, printing no result, when no CUDA device is
 visible or any check fails. Its last line is a JSON object naming the card;
 the line before it lists the kernels with their launches on each path
-(serve, train, cli_train, cli_test, artifact, http, int8_serve,
+(serve, train, train_preprocessed, cli_train, cli_test, artifact, http, int8_serve,
 unit_engine, fused_engine, tools, bench, paired_serve, paired_tool,
 ddp_train a rank, fullreg_train, fullreg_test, fullreg_artifact, and
 scripts_<tool> for each script of phase_scripts that launched it),
@@ -201,6 +208,18 @@ TRAIN_STEPS = 10
 # zero may flip sign between the two roundings and move whole entries
 LOSS_GAP_BOUND = 1e-3
 GRAD_GAP_BOUND = 1e-1
+# steps on preprocessed batches (make_train_step(None)), first step vs
+# phase_train's first raw step from the same weights, batch and draws.
+# Written before the first run: after preprocessing the two run the same
+# ops on the same tensors, so the loss and gradient are expected bit-equal,
+# unless a cuDNN backward that sums in a run-dependent order moves the
+# gradient (then by ~1e-3 relative at most); bounds 1e-6 and 1e-2
+PRE_LOSS_GAP_BOUND = 1e-6
+PRE_GRAD_GAP_BOUND = 1e-2
+PRE_STEPS = 3
+# the eval step on a preprocessed batch vs the raw eval step: err_sum_mm
+# within 1e-5 relative, count exactly
+PRE_EVAL_BOUND = 1e-5
 UNIT_BATCH = 256    # K3 and K4 alone, at bench.py's batch
 ENGINE_BATCH = 64   # the engines end to end
 FEATURES, LEVEL = 128, 4
@@ -655,7 +674,9 @@ def _step_parts(step, state, batch, gen):
 
 def phase_train(cs, device):
     """The training path at full width; returns the (K1, K2, K2's kernels)
-    launches of its main run."""
+    launches of its main run, and what phase_train_preprocessed starts from:
+    the initial weights, the raw batch, the first step's draws and the first
+    step's loss and gradient."""
     from pixelwiseregression_tpu_torch.data.preprocess import draw_augmentation
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
@@ -734,6 +755,125 @@ def phase_train(cs, device):
     print(f"eval step after {state.step} train steps: loss {float(out['loss']):.5f}, "
           f"mean error per stage {[round(v, 3) for v in mean_mm]} mm over "
           f"{int(out['count'])} frames")
+    return launches, {"state0": state0, "batch": batch, "draws0": draws0, "first": first}
+
+
+def _warp_images(batch, data, i):
+    """Sample i's depth images at 480x640 (the raw frame, mm on a zero
+    background) and at 128x128 (the centred crop, mm), each beside the ramps
+    value = x and value = y."""
+    out = {}
+    for name, depth in (("frame", batch["frame"][i]),
+                        ("crop", data["img"][i, ..., 0] * batch["cube"][i])):
+        h, w = depth.shape
+        out[name] = {"depth": depth.float().contiguous(),
+                     "ramp_x": torch.arange(w, dtype=torch.float32, device=depth.device)
+                     .expand(h, w).contiguous(),
+                     "ramp_y": torch.arange(h, dtype=torch.float32, device=depth.device)[:, None]
+                     .expand(h, w).contiguous()}
+    return out
+
+
+def _quantized_warp_card_vs_cpu(device, batch, data):
+    """cv2's fixed-point warp (warp_affine_inverse(quantize=True)) on the
+    card vs the CPU, at 480x640 and 128x128, on ramps and a depth image, by
+    inverse rotation/scale matrices (angles in +-30 degrees, scales
+    0.8-1.2) and one random affine: bit-equal."""
+    from pixelwiseregression_tpu_torch.ops.image import (rotation_matrix_inverse,
+                                                         warp_affine_inverse)
+
+    rng = np.random.RandomState(SEED + 160)
+    for name, images in _warp_images(batch, data, 0).items():
+        h, w = images["depth"].shape
+        angles = torch.from_numpy(rng.uniform(-30, 30, 7).astype(np.float32))
+        scales = torch.from_numpy(rng.uniform(0.8, 1.2, 7).astype(np.float32))
+        affine = np.array([[1 + rng.uniform(-0.2, 0.2), rng.uniform(-0.3, 0.3),
+                            rng.uniform(-6, 6), rng.uniform(-0.3, 0.3),
+                            1 + rng.uniform(-0.2, 0.2), rng.uniform(-6, 6)]], np.float32)
+        minv = torch.cat([rotation_matrix_inverse(angles, scales, w / 2, h / 2),
+                          torch.from_numpy(affine)])
+        for kind, img in images.items():
+            imgs = img.expand(len(minv), h, w).contiguous()
+            card = warp_affine_inverse(imgs, minv.to(device), quantize=True).cpu()
+            cpu = warp_affine_inverse(imgs.cpu(), minv, quantize=True)
+            differ = int((card != cpu).sum())
+            assert differ == 0 and torch.isfinite(card).all(), (name, kind, differ)
+        print(f"quantized warp card vs CPU at {h}x{w}: ramp x, ramp y and {name} depth, "
+              f"{len(minv)} matrices each, bit-equal")
+
+
+def phase_train_preprocessed(cs, device, ref):
+    """The train and eval steps on preprocessed batches (make_train_step(None),
+    make_eval_step(None)) at phase_train's width, weights, batch and first
+    draws: PRE_STEPS steps through K1 and K2 (K1 = K2 = STAGES launches a
+    step, K2 one kernel a call), the first held against phase_train's first
+    raw step and against the plain decoder's; the eval step on a preprocessed
+    batch against the raw eval step; cv2's fixed-point warp card vs CPU.
+    Returns the (K1, K2, K2's kernels) launches of the steps."""
+    from pixelwiseregression_tpu_torch.data.preprocess import preprocess_batch
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.train.loop import (LossConfig, make_eval_step,
+                                                           make_train_step)
+
+    batch, loss_cfg = ref["batch"], LossConfig(lambda_h=1.0, lambda_d=0.01, alpha=1.0)
+    with torch.no_grad():
+        data = preprocess_batch(batch, _train_cfg(), augment=True, draws=ref["draws0"])
+    step = make_train_step(None, loss_cfg)
+    state = _train_setup(device, "cuda", torch.bfloat16, ref["state0"], TRAIN_BATCH)
+    torch.cuda.synchronize()
+    cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
+    losses, t = [], time.perf_counter()
+    for i in range(PRE_STEPS):
+        before = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
+        m = step(state, data)
+        got = (cs.LAUNCHES - before[0], cs.BWD_LAUNCHES - before[1],
+               cs.BWD_KERNEL_LAUNCHES - before[2])
+        assert got == (STAGES,) * 3, f"step {i}: K1, K2 and K2's kernels {got}"
+        if i == 0:
+            first = {"loss": float(m["loss"]), "grads": _grads(state.model)}
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
+    assert launches == (STAGES * PRE_STEPS,) * 3, launches
+    assert all(np.isfinite(losses)), losses
+    raw_first = ref["first"]
+    loss_gap = abs(first["loss"] - raw_first["loss"]) / abs(raw_first["loss"])
+    grad_gap = _whole_gap(first["grads"], raw_first["grads"])
+    print(f"train on preprocessed batches NYU stages={STAGES} bf16 batch={TRAIN_BATCH}: "
+          f"{PRE_STEPS} steps in {seconds:.2f} s, launches K1={launches[0]} K2={launches[1]} in "
+          f"{launches[2]} kernels, losses {[round(v, 5) for v in losses]}; first step vs the raw "
+          f"step: loss {first['loss']:.6f} vs {raw_first['loss']:.6f} (relative gap "
+          f"{loss_gap:.3e}), whole-gradient relative gap {grad_gap:.3e}")
+    assert loss_gap <= PRE_LOSS_GAP_BOUND, loss_gap
+    assert grad_gap <= PRE_GRAD_GAP_BOUND, grad_gap
+
+    plain = _train_setup(device, "torch", torch.bfloat16, ref["state0"], TRAIN_BATCH)
+    m = step(plain, data)
+    loss_gap = abs(float(m["loss"]) - first["loss"]) / abs(float(m["loss"]))
+    grad_gap = _whole_gap(first["grads"], _grads(plain.model))
+    print(f"train on preprocessed batches, first step, kernel vs plain decoder: relative loss "
+          f"gap {loss_gap:.3e}, whole-gradient relative gap {grad_gap:.3e}")
+    assert loss_gap <= LOSS_GAP_BOUND, loss_gap
+    assert grad_gap <= GRAD_GAP_BOUND, grad_gap
+    del plain
+
+    cfg_eval, cam = _train_cfg(augment=False), SPECS["NYU"].camera
+    n_real = TRAIN_BATCH - TRAIN_BATCH // 16
+    weight = (torch.arange(TRAIN_BATCH, device=device) < n_real).float()
+    want = make_eval_step(cfg_eval, loss_cfg, cam)(state, {**batch, "weight": weight})
+    with torch.no_grad():
+        clean = preprocess_batch(batch, cfg_eval)
+    got = make_eval_step(None, loss_cfg, cam)(state, {**clean, "weight": weight})
+    err_gap = float(((got["err_sum_mm"] - want["err_sum_mm"]).abs() / want["err_sum_mm"].abs())
+                    .max())
+    print(f"eval on a preprocessed batch vs the raw eval step: err_sum_mm "
+          f"{[round(v, 4) for v in got['err_sum_mm'].tolist()]} vs "
+          f"{[round(v, 4) for v in want['err_sum_mm'].tolist()]} (largest relative gap "
+          f"{err_gap:.3e}), count {int(got['count'])} vs {int(want['count'])}")
+    assert err_gap <= PRE_EVAL_BOUND, err_gap
+    assert float(got["count"]) == float(want["count"]) == n_real
+    _quantized_warp_card_vs_cpu(device, batch, clean)
     return launches
 
 
@@ -1643,9 +1783,11 @@ def phase_scripts(cs, device, smi_line, data, work):
     table = sum(us for us, _ in comps.values())
     print(f"scripts component table: {prof.total_us / 1e3 / SCRIPT_STEPS:.3f} ms/step of device "
           f"time, components sum {table / 1e3 / SCRIPT_STEPS:.3f}, unattributed "
-          f"{len(prof.unattributed)} kernels; {smi_line}", flush=True)
+          f"{len(prof.unattributed)} kernels ({prof.by_span} tied to their op by the span of "
+          f"their runtime call, {prof.stale} records of an earlier session left out); "
+          f"{smi_line}", flush=True)
     assert abs(table - prof.total_us) <= SCRIPT_TABLE_BOUND * prof.total_us, (table, prof.total_us)
-    assert not prof.unattributed, [leaf.name for leaf in prof.unattributed[:5]]
+    assert not prof.unattributed, [(leaf.name, leaf.start) for leaf in prof.unattributed[:5]]
     decoder = {}
     for leaf in prof.leaves:
         if "softargmax" in leaf.name:
@@ -1665,7 +1807,11 @@ def phase_scripts(cs, device, smi_line, data, work):
         print(f"scripts {name} {' '.join(argv)}:", flush=True)
         res = counted(name, SCRIPT_LAUNCHES.get(name, reported), lambda: tool.main(argv))
         if name.startswith("profile_"):
-            assert not res["profile"].unattributed, name
+            p = res["profile"]
+            print(f"scripts {name}: {p.by_span} kernels tied by span, {p.stale} stale records "
+                  f"left out", flush=True)
+            assert not p.unattributed, (name, [(leaf.name, leaf.start)
+                                               for leaf in p.unattributed[:5]])
         if name == "headconv_bwd_split":
             for line in res["summary"]:
                 print(f"scripts head unit split:{line}; {smi_line}", flush=True)
@@ -2783,7 +2929,11 @@ def main() -> int:
     dev = phase_decoder_device(device)
     serve_launches = phase_serve(cs, device)
     phase_reference(device)
-    train_launches = phase_train(cs, device)
+    train_launches, train_ref = phase_train(cs, device)
+    t = time.perf_counter()
+    pre_launches = phase_train_preprocessed(cs, device, train_ref)
+    del train_ref
+    print(f"phase_train_preprocessed: {time.perf_counter() - t:.1f} s")
     phase_train_f32(cs, device)
     phase_train_reference(device)
     cli_launches = phase_cli(cs, device, smi_line)
@@ -2859,6 +3009,7 @@ def main() -> int:
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:50",
          "launches": train_launches[0],
          "launches_by_path": {"serve": serve_launches, "train": train_launches[0],
+                              "train_preprocessed": pre_launches[0],
                               "cli_train": cli_launches["K1_train"],
                               "cli_test": cli_launches["K1_test"],
                               "unit_engine": engine_launches["unit"][2],
@@ -2887,13 +3038,16 @@ def main() -> int:
         {"name": "softargmax_bwd", "route": "cuda", "source": source.format("softargmax_bwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:76",
          "launches": train_launches[1],
-         "launches_by_path": {"train": train_launches[1], "cli_train": cli_launches["K2"],
+         "launches_by_path": {"train": train_launches[1],
+                              "train_preprocessed": pre_launches[1],
+                              "cli_train": cli_launches["K2"],
                               "bench": bench_launches["K2"],
                               "ddp_train": [r["K2"] for r in ddp["launches"]],
                               "fullreg_train": fullreg["fullreg_train"]["K2"],
                               **{f"scripts_{tool}": n["K2"] for tool, n in scripts.items()
                                  if n["K2"]}},
          "kernel_launches_by_path": {"train": train_launches[2],
+                                     "train_preprocessed": pre_launches[2],
                                      "cli_train": cli_launches["K2_kernels"],
                                      "bench": bench_launches["K2_kernels"]},
          "max_abs_err": main_bwd["max_abs_err"], "ms": bwd_row["call_ms"], **bwd_row,

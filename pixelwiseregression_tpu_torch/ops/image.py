@@ -14,8 +14,10 @@ tap indices.
 ``warp_affine_inverse`` (cv2.warpAffine, INTER_LINEAR, BORDER_CONSTANT 0) is
 the explicit 4-tap bilinear gather. The JAX package's default evaluates the
 same taps as hat functions through a matmul, a form for the TPU's matrix
-unit; the two agree to f32 rounding. ``gaussian_blur`` is cv2.GaussianBlur:
-a separable kernel computed in float64, BORDER_REFLECT_101 padding.
+unit; the two agree to f32 rounding. With ``quantize=True`` the source
+coordinates are cv2's legacy fixed-point ones. ``gaussian_blur`` is
+cv2.GaussianBlur: a separable kernel computed in float64, BORDER_REFLECT_101
+padding.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# cv2's INTER_BITS: the legacy warp's fractional offsets are multiples of 1/32
+_INTER_TAB_SIZE = 32
+# cv2's AB_BITS: the legacy warp's per-axis terms are rounded to 1/1024
+_AB_SCALE = 1024.0
 
 
 def _resize_taps(out_size: int, src_size: torch.Tensor):
@@ -117,20 +124,42 @@ def rotation_matrix_inverse(angle_deg: torch.Tensor, scale: torch.Tensor, center
     return torch.stack([m00, m01, m02, m10, m11, m12], dim=-1)
 
 
-def warp_affine_inverse(img: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
+def warp_affine_inverse(img: torch.Tensor, minv: torch.Tensor,
+                        quantize: bool = False) -> torch.Tensor:
     """cv2.warpAffine of ``[B, H, W]`` images with per-sample dst -> src
     matrices ``minv`` ``[B, 6]``. INTER_LINEAR, BORDER_CONSTANT 0, with
-    unquantized float source coordinates (modern cv2 for float images)."""
+    unquantized float source coordinates (modern cv2 for float images).
+
+    ``quantize=True`` takes cv2's legacy fixed-point coordinates instead:
+    each column's and each row's term rounded to 1/1024, plus cv2's rounding
+    delta of 16/1024, floored to the 1/32 grid. Each product and sum is its
+    own op, in the JAX package's f32 order, so that a term on a rounding
+    boundary rounds alike on the CPU and the card (no fused multiply-add).
+    """
     b, h, w = img.shape
     gy = torch.arange(h, dtype=img.dtype, device=img.device)[:, None]
     gx = torch.arange(w, dtype=img.dtype, device=img.device)[None, :]
     m = [minv[:, i, None, None] for i in range(6)]  # [B, 1, 1] each
-    sx = m[0] * gx + m[1] * gy + m[2]
-    sy = m[3] * gx + m[4] * gy + m[5]
-    ix = torch.floor(sx).to(torch.int64)
-    iy = torch.floor(sy).to(torch.int64)
-    fx = sx - ix.to(img.dtype)
-    fy = sy - iy.to(img.dtype)
+    if quantize:
+        shift = _AB_SCALE / _INTER_TAB_SIZE  # 32
+        delta = shift / 2
+        ax = torch.round(m[0] * gx * _AB_SCALE)  # [B, 1, W]
+        ay = torch.round(m[3] * gx * _AB_SCALE)
+        bx = torch.round((m[1] * gy + m[2]) * _AB_SCALE) + delta  # [B, H, 1]
+        by = torch.round((m[4] * gy + m[5]) * _AB_SCALE) + delta
+        xq = torch.floor((bx + ax) / shift)  # units of 1/32
+        yq = torch.floor((by + ay) / shift)
+        ix = torch.floor(xq / _INTER_TAB_SIZE).to(torch.int64)
+        iy = torch.floor(yq / _INTER_TAB_SIZE).to(torch.int64)
+        fx = (xq - ix.to(img.dtype) * _INTER_TAB_SIZE) / _INTER_TAB_SIZE
+        fy = (yq - iy.to(img.dtype) * _INTER_TAB_SIZE) / _INTER_TAB_SIZE
+    else:
+        sx = m[0] * gx + m[1] * gy + m[2]
+        sy = m[3] * gx + m[4] * gy + m[5]
+        ix = torch.floor(sx).to(torch.int64)
+        iy = torch.floor(sy).to(torch.int64)
+        fx = sx - ix.to(img.dtype)
+        fy = sy - iy.to(img.dtype)
 
     flat = img.reshape(b, h * w)
 

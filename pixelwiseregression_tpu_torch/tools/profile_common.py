@@ -21,9 +21,16 @@ Here:
   sequence number of the forward op that made its node: PyTorch's
   counterpart of ``transpose(jvp(...))``;
 * a device event (kernel, memcpy, memset) names the CPU op that launched it
-  by ``External id``, or through its runtime call's ``correlation``. A
-  kernel launched through ctypes (K2, in ``_Decode.backward``) has no ATen
-  op of its own: its op is the backward node, ``_DecodeBackward``.
+  by ``External id``, or through its runtime call's ``correlation``: the
+  call's ``External id``, else the innermost CPU event on the call's thread
+  whose span holds the call (CUPTI may deliver a launch without its
+  external correlation). A kernel launched through ctypes (K2, in
+  ``_Decode.backward``) has no ATen op of its own: its op is the backward
+  node, ``_DecodeBackward``;
+* a device event that started before the trace's first CPU event is a
+  record of an earlier session (the card is synchronised before the window
+  opens, and CUPTI may hand a late record to the next session): it is
+  counted in ``Profile.stale`` and left out.
 
 The rules, for a CPU event (an op, or the op that launched a device event),
 walking the events that enclose it outward:
@@ -54,6 +61,7 @@ its children's), so that the rules can be checked without a card.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import functools
 import json
@@ -163,13 +171,17 @@ class Profile:
     """The leaves of a traced window and its total, counted apart from the
     leaves: on the card the device events' time, on the CPU the threads'
     outermost events' spans; ``wall_s``, the host's seconds for the traced
-    calls (under the profiler)."""
+    calls (under the profiler); ``stale``, the device records of an earlier
+    session left out; ``by_span``, the device events tied to their op
+    through the span of their runtime call."""
 
     device: str
     calls: int
     leaves: list = field(default_factory=list)
     total_us: float = 0.0
     wall_s: float = 0.0
+    stale: int = 0
+    by_span: int = 0
 
     @property
     def attributed_us(self) -> float:
@@ -291,11 +303,33 @@ class _Tree:
         self.by_external = {e["args"]["External id"]: i for i, e in enumerate(self.events)
                             if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
         self._labels = {}
+        self._starts = None
         self.seq_labels = self._sequence_labels()
 
     def _span(self, i):
         e = self.events[i]
         return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+
+    def opened(self) -> float:
+        """The first CPU event's start (-inf for none)."""
+        return min((self._span(i)[0] for i in range(len(self.events))), default=float("-inf"))
+
+    def enclosing(self, tid, ts: float):
+        """The innermost CPU event on thread ``tid`` whose span holds
+        ``ts``, or None."""
+        if self._starts is None:
+            by_tid = defaultdict(list)
+            for i in range(len(self.events)):
+                start, end = self._span(i)
+                by_tid[self.events[i]["tid"]].append((start, -(end - start), i))
+            self._starts = {t: ([s for s, _, _ in sorted(v)], [i for _, _, i in sorted(v)])
+                            for t, v in by_tid.items()}
+        starts, idx = self._starts.get(tid, ((), ()))
+        k = bisect.bisect_right(starts, ts) - 1
+        if k < 0:
+            return None
+        return next((j for j in self._chain(idx[k])
+                     if self._span(j)[0] <= ts <= self._span(j)[1]), None)
 
     def _chain(self, i):
         while i >= 0:
@@ -369,18 +403,26 @@ def attribute(events, device: str, calls: int = 1) -> Profile:
             prof.leaves.append(Leaf(e["name"], float(e["dur"]) - child_us[i], start, end,
                                     *tree.label(i)))
         return prof
-    runtime = {e["args"]["correlation"]: e["args"].get("External id")
+    runtime = {e["args"]["correlation"]: e
                for e in events if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
                and "correlation" in e.get("args", {})}
+    opened = tree.opened()
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
+        start, dur = float(e["ts"]), float(e["dur"])
+        if start < opened:
+            prof.stale += 1
+            continue
         args = e.get("args", {})
         op = tree.by_external.get(args.get("External id"))
-        if op is None:
-            op = tree.by_external.get(runtime.get(args.get("correlation")))
+        call = runtime.get(args.get("correlation"))
+        if op is None and call is not None:
+            op = tree.by_external.get(call["args"].get("External id"))
+            if op is None:
+                op = tree.enclosing(call.get("tid"), float(call["ts"]))
+                prof.by_span += op is not None
         kind, where = tree.label(op) if op is not None else (None, "")
-        start, dur = float(e["ts"]), float(e["dur"])
         prof.leaves.append(Leaf(e["name"], dur, start, start + dur, kind, where))
         prof.total_us += dur
     return prof

@@ -18,7 +18,9 @@ decay_epoch)``, as optax evaluates its schedule before the update.
 A step takes a raw batch already on the device (frames + crop integers,
 as ``utils/synth.py`` and the host records give them), runs the on-device
 preprocessing without autograd, then forward, backward and the optimizer
-step. The eval step computes the mean 3-D joint error on the device and
+step. Built with ``preprocess_cfg=None``, the train and eval steps take a
+batch that is already preprocessed instead, in ``preprocess_batch``'s
+layout. The eval step computes the mean 3-D joint error on the device and
 returns only small tensors. ``make_train_step_fullreg`` and
 ``make_eval_step_fullreg`` are the FullRegression family's (the JAX
 package's ``cli/train_main.py:354-435``): the uvd loss alone.
@@ -184,6 +186,21 @@ def _local_draws(cfg: PreprocessConfig, augment: bool, batch, generator, draws):
     return {k: mesh.local_slice(v) for k, v in full.items()}
 
 
+def _sample_weight(valid, weight):
+    """``valid`` times ``weight``, either of them absent (None), as f32;
+    None where both are."""
+    sw = None if valid is None else valid.to(torch.float32)
+    if weight is not None:
+        w = weight.to(torch.float32)
+        sw = w if sw is None else sw * w
+    return sw
+
+
+def _require_cfg(preprocess_cfg):
+    if preprocess_cfg is None:
+        raise ValueError("the FullRegression steps take raw batches: preprocess_cfg is required")
+
+
 def _update(state: TrainState, loss, mark):
     """Backward, the gradients summed over the ranks, the optimizer and
     schedule steps."""
@@ -233,7 +250,7 @@ def _stacked(every):
     return torch.stack([torch.stack(list(e)) for e in every]).detach()
 
 
-def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
+def make_train_step(preprocess_cfg: Optional[PreprocessConfig], loss_cfg: LossConfig,
                     augment: bool = True):
     """Build the train step ``step(state, batch, generator=None, draws=None, events=None)``.
 
@@ -241,6 +258,12 @@ def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
     preprocesses it on the device, with the augmentation draws from
     ``draws`` or ``generator`` (``data.preprocess.preprocess_batch``). An
     optional ``weight`` ``[B]`` masks padded samples.
+
+    With ``preprocess_cfg`` None the batch is already preprocessed, in
+    ``preprocess_batch``'s layout: img, label_img and mask ``[B, H, W, 1]``,
+    heatmaps and dmaps ``[B, h, w, J]``, uvd ``[B, J, 3]``, and optionally
+    valid and weight ``[B]``, which mask samples where given (all count
+    where neither is). ``augment``, ``generator`` and ``draws`` are not read.
 
     It runs the model in train mode, takes one optimizer and schedule step,
     leaves this step's gradients in the params' ``.grad``, and returns
@@ -259,13 +282,14 @@ def make_train_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
                 events[i].record()
 
         mark(0)
-        with torch.no_grad():
-            data = preprocess_batch(
-                batch, preprocess_cfg, augment=augment, generator=generator,
-                draws=_local_draws(preprocess_cfg, augment, batch, generator, draws))
-        sw = data["valid"].to(torch.float32)
-        if "weight" in batch:
-            sw = sw * batch["weight"].to(torch.float32)
+        if preprocess_cfg is None:
+            data = batch
+        else:
+            with torch.no_grad():
+                data = preprocess_batch(
+                    batch, preprocess_cfg, augment=augment, generator=generator,
+                    draws=_local_draws(preprocess_cfg, augment, batch, generator, draws))
+        sw = _sample_weight(data.get("valid"), batch.get("weight"))
         mark(1)
 
         model = state.model.train()
@@ -287,6 +311,7 @@ def make_train_step_fullreg(preprocess_cfg: PreprocessConfig):
     the valid samples (a ``weight`` field is not read, as in JAX). Returns
     ``{"loss", "stage_losses" [stages, 3]}`` with the uvd loss in the last
     column; ``events`` as ``make_train_step``'s."""
+    _require_cfg(preprocess_cfg)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -314,11 +339,13 @@ def make_train_step_fullreg(preprocess_cfg: PreprocessConfig):
     return step
 
 
-def make_eval_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
+def make_eval_step(preprocess_cfg: Optional[PreprocessConfig], loss_cfg: LossConfig,
                    camera: Camera):
     """Build the eval step ``step(state, batch)``: losses and the per-stage
     sum of the per-sample mean 3-D joint error (mm), weighted by ``weight``
-    (1 real, 0 padding), computed on the device in eval mode.
+    (1 real, 0 padding), computed on the device in eval mode. With
+    ``preprocess_cfg`` None the batch is already preprocessed (as
+    ``make_train_step``'s) and also carries box_size, com and cube.
 
     Returns ``{"loss", "stage_losses" [stages, 3], "err_sum_mm" [stages],
     "count"}``; the mean error of stage s is ``err_sum_mm[s] / count``.
@@ -341,7 +368,7 @@ def make_eval_step(preprocess_cfg: PreprocessConfig, loss_cfg: LossConfig,
 
 
 def _eval_data(batch, preprocess_cfg):
-    data = preprocess_batch(batch, preprocess_cfg)
+    data = batch if preprocess_cfg is None else preprocess_batch(batch, preprocess_cfg)
     weight = batch.get("weight")
     if weight is None:
         weight = torch.ones(data["img"].shape[0], device=data["img"].device)
@@ -352,6 +379,7 @@ def make_eval_step_fullreg(preprocess_cfg: PreprocessConfig, camera: Camera):
     """The FullRegression family's eval step ``step(state, batch)`` (JAX
     ``make_eval_step_fullreg``): the weighted uvd losses and mean 3-D joint
     error, as ``make_eval_step``'s dict (stage losses padded to (0, 0, u))."""
+    _require_cfg(preprocess_cfg)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model.eval()

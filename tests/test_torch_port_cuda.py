@@ -4,8 +4,8 @@ the whole hourglass (K4), the norm+relu backward (K5) and the ablation
 pieces (K6) vs their plain PyTorch versions, the wrappers' checks, the
 Predictor through K1 (and K1 as the operator ``torch.ops.pwr.softargmax_fwd``,
 which a serving artifact exported on the CPU calls on the card), the int8
-conv's product on the card vs the CPU, a train step through K1 and K2,
-both inference engines through K3, K4 and K1, and the CLIs: Loader batches
+conv's product on the card vs the CPU, a train step through K1 and K2 (on raw and on preprocessed batches),
+cv2's fixed-point warp card vs CPU, both inference engines through K3, K4 and K1, and the CLIs: Loader batches
 through pinned memory, run_training through K1 and K2 and run_inference
 through K1.
 
@@ -28,7 +28,8 @@ from pixelwiseregression_tpu_torch.cli.common import make_test_parser, make_trai
 from pixelwiseregression_tpu_torch.cli.test_main import run_inference
 from pixelwiseregression_tpu_torch.cli.train_main import run_training
 from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
-from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, draw_augmentation
+from pixelwiseregression_tpu_torch.data.preprocess import (PreprocessConfig, draw_augmentation,
+                                                            preprocess_batch)
 from pixelwiseregression_tpu_torch.data.sources import SPECS, get_source
 from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
 from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
@@ -38,6 +39,7 @@ from pixelwiseregression_tpu_torch.ops import cuda_hourglass as thg
 from pixelwiseregression_tpu_torch.ops import cuda_normrelu as tcn
 from pixelwiseregression_tpu_torch.ops import cuda_softargmax as tcuda
 from pixelwiseregression_tpu_torch.ops import fused_normrelu as tnr
+from pixelwiseregression_tpu_torch.ops import image as timage
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.train.loop import LossConfig, create_train_state, make_train_step
@@ -419,6 +421,91 @@ def test_train_step_through_the_kernels_matches_plain_decoder(device):
     whole = (torch.cat([(g_k[n] - g_p[n]).flatten() for n in g_p]).norm()
              / torch.cat([g_p[n].flatten() for n in g_p]).norm())
     assert float(whole) <= 5e-2, float(whole)
+
+
+def _small_state(device, state_dict):
+    model = PixelwiseRegression(14, stage=2, features=16, level=2, norm_method="instance_anchored",
+                                decoder="cuda").to(device)
+    model.load_state_dict(state_dict)
+    return create_train_state(model, lr=1e-3, steps_per_epoch=100)
+
+
+@pytest.mark.parametrize("weight", [True, False])
+def test_train_step_on_a_preprocessed_batch_equals_the_raw_step(device, weight):
+    """make_train_step(None) on preprocess_batch(raw, draws) vs
+    make_train_step(cfg) on raw with the same draws, both on the card (a
+    small f32 model, two stages, anchored norms), with the last sample
+    padded and with no weight: each step launches K1 and K2 once a stage and
+    K2 one kernel a call; loss, stage losses, every gradient and every
+    updated parameter and buffer equal bit for bit. cuDNN runs its
+    deterministic algorithms here: its default f32 weight gradient sums in a
+    run-dependent order, so two runs of one step part by an ulp."""
+    spec = SPECS["NYU"]
+    torch.manual_seed(5)
+    state_dict = PixelwiseRegression(14, stage=2, features=16, level=2,
+                                     norm_method="instance_anchored").state_dict()
+    raw = make_synthetic_raw_batch(4, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=150.0, com_z=450.0, seed=6)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    if weight:
+        batch["weight"] = torch.tensor([1.0, 1.0, 1.0, 0.0], device=device)
+    draws = draw_augmentation(4, torch.Generator(device=device).manual_seed(7), device)
+    cfg = PreprocessConfig(fx=spec.camera.fx, fy=spec.camera.fy, halfu=spec.camera.halfu,
+                           halfv=spec.camera.halfv, image_size=64, label_size=32,
+                           using_rotation=True, using_scale=True, using_shift=True)
+    loss_cfg = LossConfig(alpha=0.5)
+    s_raw, s_pre = _small_state(device, state_dict), _small_state(device, state_dict)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m_raw = make_train_step(cfg, loss_cfg)(s_raw, batch, draws=draws)
+        with torch.no_grad():
+            data = preprocess_batch(batch, cfg, augment=True, draws=draws)
+        if weight:
+            data["weight"] = batch["weight"]
+        before = (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES, tcuda.BWD_KERNEL_LAUNCHES)
+        m_pre = make_train_step(None, loss_cfg)(s_pre, data)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert (tcuda.LAUNCHES, tcuda.BWD_LAUNCHES, tcuda.BWD_KERNEL_LAUNCHES) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2)
+    assert torch.isfinite(m_pre["loss"])
+    assert torch.equal(m_pre["loss"], m_raw["loss"])
+    assert torch.equal(m_pre["stage_losses"], m_raw["stage_losses"])
+    grads = dict(s_raw.model.named_parameters())
+    for name, p in s_pre.model.named_parameters():
+        assert torch.equal(p.grad, grads[name].grad), name
+    want = s_raw.model.state_dict()
+    for name, t in s_pre.model.state_dict().items():
+        assert torch.equal(t, want[name]), name
+
+
+@pytest.mark.parametrize("h,w", [(128, 128), (480, 640)])
+def test_quantized_warp_on_the_card_equals_the_cpu(device, h, w):
+    """cv2's fixed-point warp (warp_affine_inverse(quantize=True)) on the
+    card vs the CPU, bit for bit: ramps (value = x, value = y) and a
+    depth-like image (+-100 mm on a zero background), by inverse
+    rotation/scale matrices (angles in +-30 degrees, scales 0.8-1.2) and one
+    random affine. Each product and sum is its own kernel, so no fused
+    multiply-add moves a term that lies on a rounding boundary."""
+    rng = np.random.RandomState(h + w)
+    depth = rng.uniform(-100, 100, (h, w)).astype(np.float32)
+    depth[: h // 6] = 0.0
+    depth[:, w * 3 // 4:] = 0.0
+    images = {"ramp_x": np.broadcast_to(np.arange(w, dtype=np.float32), (h, w)),
+              "ramp_y": np.broadcast_to(np.arange(h, dtype=np.float32)[:, None], (h, w)),
+              "depth": depth}
+    angles = torch.from_numpy(np.r_[0.0, 30.0, -30.0, rng.uniform(-30, 30, 4)].astype(np.float32))
+    scales = torch.from_numpy(np.r_[1.0, 0.8, 1.2, rng.uniform(0.8, 1.2, 4)].astype(np.float32))
+    affine = np.array([[1.07, 0.21, -3.7, -0.17, 0.91, 5.3]], np.float32)
+    minv = torch.cat([timage.rotation_matrix_inverse(angles, scales, w / 2, h / 2),
+                      torch.from_numpy(affine)])
+    for name, img in images.items():
+        imgs = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(img, (len(minv), h, w))))
+        cpu = timage.warp_affine_inverse(imgs, minv, quantize=True)
+        card = timage.warp_affine_inverse(imgs.to(device), minv.to(device), quantize=True).cpu()
+        assert torch.equal(card, cpu), (name, int((card != cpu).sum()))
 
 
 # --------------------------------------------------------------------------- #

@@ -193,3 +193,45 @@ def test_card_branch_ties_kernels_to_their_ops():
     assert prof.attributed_us == pytest.approx(12.0)
     assert [leaf.name for leaf in prof.unattributed] == ["orphan"]
     assert pc.busy(prof) == (pytest.approx(12.25), pytest.approx(17.25))
+
+
+def _runtime(ts, corr, tid=1, ext=None):
+    args = {"correlation": corr}
+    if ext is not None:
+        args["External id"] = ext
+    return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts, "dur": 1,
+            "tid": tid, "args": args}
+
+
+def test_card_branch_ties_by_span_and_leaves_out_stale_records():
+    """On a hand-built card trace: a launch whose external correlation was
+    lost is tied to the innermost CPU event on its runtime call's thread
+    whose span holds the call (a later sibling that ended first does not
+    take it); a runtime call on a thread with no CPU event leaves its kernel
+    unattributed; a device record that started before the first CPU event
+    (an earlier session's) is counted as stale and left out of the leaves
+    and the total."""
+    m = pc.MODULE_RANGE
+    events = [
+        _op(m, 10, 100, 1, cat="user_annotation"),
+        _op(m + "stages.0", 11, 60, 2, cat="user_annotation"),
+        _op("aten::add", 12, 10, 3),
+        _op("aten::mul", 30, 5, 4),
+        _op("aten::sum", 80, 10, 5),
+        _runtime(14, 1, ext=None),
+        _runtime(40, 2, ext=None),
+        _runtime(50, 3, tid=9),
+        _runtime(85, 4, ext=5),
+        _kernel("add_lost_link", 120, 2.0, corr=1),
+        _kernel("in_range_only", 122, 1.0, corr=2),
+        _kernel("other_thread", 124, 0.5, corr=3),
+        _kernel("sum", 125, 1.5, corr=4),
+        _kernel("earlier_session", 2, 4.0, ext=3, corr=1),
+    ]
+    prof = pc.attribute(events, "cuda")
+    got = {leaf.name: pc.component(leaf.kind, leaf.where, 3) for leaf in prof.leaves}
+    assert got == {"add_lost_link": "[fwd] stages.0", "in_range_only": "[fwd] stages.0",
+                   "other_thread": pc.UNATTRIBUTED, "sum": "[fwd] <model-root>"}
+    assert (prof.stale, prof.by_span) == (1, 2)
+    assert prof.total_us == pytest.approx(5.0)
+    assert [leaf.name for leaf in prof.unattributed] == ["other_thread"]
