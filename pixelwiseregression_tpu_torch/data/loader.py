@@ -24,6 +24,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from pixelwiseregression_tpu_torch import obs
+
 
 def stack_records(records: List[Dict[str, np.ndarray]], pad_to: Optional[int] = None):
     """Stack per-sample host records into a batch; optionally pad by
@@ -43,12 +45,14 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device``. For a CUDA device each array
     is copied into pinned host memory and sent with a non-blocking copy on
     the current stream (the caching host allocator keeps the pinned buffer
-    until the copy is done)."""
+    until the copy is done). While a profiler runs, the call is the span
+    ``loader.to_device`` (``obs``)."""
     device = torch.device(device)
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.require(v, requirements="C"))
-        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+    with obs.span("loader.to_device"):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.require(v, requirements="C"))
+            out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
     return out
 
 

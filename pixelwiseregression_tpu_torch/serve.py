@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pixelwiseregression_tpu_torch import obs
 from pixelwiseregression_tpu_torch.core.camera import recover_uvd
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import SPECS, DatasetSpec
@@ -216,20 +217,32 @@ class Predictor:
 
         Returns ``uvd`` ``[N, J, 3]`` (frame coords + mm) and ``xyz``
         ``[N, J, 3]`` (world mm), both f32 numpy.
+
+        While a profiler runs, a call records the span ``serve.predict`` and
+        in it (``obs``) ``serve.build_batch`` (the host batch),
+        ``serve.to_device`` (its copy to a replica), ``serve.launch`` (the
+        serving function's launches, calibration included) and
+        ``serve.wait`` (the gather of the answers to the host).
         """
-        batch, count = _build_batch(self.spec, self.batch_size, frames, coms, cubes)
-        # each replica runs its rows of the padded batch; every launch is
-        # queued before the first result is read, so the cards overlap
-        rows = self.batch_size // len(self.replicas)
-        outs = []
-        with torch.inference_mode():
-            for i, (d, serving) in enumerate(self.replicas):
-                part = _device_batch({k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}, d)
+        with obs.span("serve.predict"):
+            with obs.span("serve.build_batch"):
+                batch, count = _build_batch(self.spec, self.batch_size, frames, coms, cubes)
+            # each replica runs its rows of the padded batch; every launch is
+            # queued before the first result is read, so the cards overlap
+            rows = self.batch_size // len(self.replicas)
+            outs = []
+            with torch.inference_mode():
+                for i, (d, serving) in enumerate(self.replicas):
+                    with obs.span("serve.to_device"):
+                        part = _device_batch({k: v[i * rows:(i + 1) * rows]
+                                              for k, v in batch.items()}, d)
+                    with obs.span("serve.launch"):
+                        if self.calib_left > 0:
+                            with calibrating(serving.model):
+                                serving(part)
+                        outs.append(serving(part))
                 if self.calib_left > 0:
-                    with calibrating(serving.model):
-                        serving(part)
-                outs.append(serving(part))
-            if self.calib_left > 0:
-                self.calib_left -= 1
-            uvd = torch.cat([o.cpu() for o in outs])[:count].numpy()
-        return {"uvd": uvd, "xyz": self.spec.camera.uvd2xyz(uvd)}
+                    self.calib_left -= 1
+                with obs.span("serve.wait"):
+                    uvd = torch.cat([o.cpu() for o in outs])[:count].numpy()
+            return {"uvd": uvd, "xyz": self.spec.camera.uvd2xyz(uvd)}

@@ -44,8 +44,10 @@ walking the events that enclose it outward:
    the CPU does, nests another); ``<non-model> [bwd] Node`` for a node no
    traced forward op made (``AccumulateGrad``);
 3. otherwise ``<non-model> label``, ``label`` the name of the outermost
-   event: a named range (``preprocess``, the optimizer's own
-   ``Optimizer.step#AdamW.step``) or the op itself.
+   event that is not one of the program's own spans (``obs``: the train
+   step and its phases wrap everything else): a named range
+   (``preprocess``, the optimizer's own ``Optimizer.step#AdamW.step``) or
+   the op itself.
 
 A sequence number's label is that of the last op (by start) that took it:
 the op that made the node takes it last, since an op that makes none leaves
@@ -74,6 +76,8 @@ from dataclasses import dataclass, field
 
 import torch
 from torch.autograd.profiler import record_function
+
+from pixelwiseregression_tpu_torch import obs
 
 MODULE_RANGE = "pwr.module:"
 EVALUATE = "autograd::engine::evaluate_function: "
@@ -281,10 +285,12 @@ def busy(prof: Profile) -> tuple[float, float]:
 
 
 class _Tree:
-    """The trace's CPU events (ops and ranges) nested by thread and span."""
+    """The trace's CPU events (ops and ranges) nested by thread and span;
+    ``spans``, the names of the program's own spans, which no label takes."""
 
-    def __init__(self, events):
+    def __init__(self, events, spans=frozenset()):
         self.events = [e for e in events if e.get("ph") == "X" and e.get("cat") in CPU_CATS]
+        self.spans = spans
         self.parent = [-1] * len(self.events)
         by_tid = defaultdict(list)
         for i, e in enumerate(self.events):
@@ -346,7 +352,7 @@ class _Tree:
         path = next((name for name in chain if name.startswith(MODULE_RANGE)), None)
         if path is not None:
             return "fwd", path[len(MODULE_RANGE):]
-        return "non-model", chain[-1]
+        return "non-model", next((n for n in reversed(chain) if n not in self.spans), chain[0])
 
     def _sequence_labels(self):
         last = {}
@@ -371,7 +377,8 @@ class _Tree:
             elif name.startswith(MODULE_RANGE) and outer is None:
                 out = ("fwd", name[len(MODULE_RANGE):])
                 break
-            root = j
+            if name not in self.spans:
+                root = j
         else:
             if outer is None:
                 out = ("non-model", self.events[root]["name"])
@@ -389,7 +396,7 @@ def attribute(events, device: str, calls: int = 1) -> Profile:
     """The ``Profile`` of a chrome trace's ``traceEvents``: on ``cuda`` its
     device events attributed through the ops that launched them, on ``cpu``
     its CPU events by self time."""
-    tree = _Tree(events)
+    tree = _Tree(events, {s.name for s in obs.spans()})
     prof = Profile(device=device, calls=calls)
     if device == "cpu":
         child_us = defaultdict(float)

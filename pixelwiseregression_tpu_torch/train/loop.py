@@ -42,6 +42,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from pixelwiseregression_tpu_torch import obs
 from pixelwiseregression_tpu_torch.core.camera import Camera, recover_uvd
 from pixelwiseregression_tpu_torch.data.preprocess import (
     PreprocessConfig,
@@ -201,6 +202,37 @@ def _require_cfg(preprocess_cfg):
         raise ValueError("the FullRegression steps take raw batches: preprocess_cfg is required")
 
 
+# the train step's phases, each from its boundary i to boundary i + 1
+PHASES = ("train.preprocess", "train.forward", "train.backward", "train.optimizer")
+
+
+class _Boundaries:
+    """A train step's boundaries 0..4, where its phases are defined:
+    ``mark(i)`` records the caller's CUDA event ``i`` (``events=``) and
+    moves the step's span (``obs``) from phase ``i - 1`` to phase ``i``.
+    Leaving it as a context closes a phase still open (a step that raised)."""
+
+    def __init__(self, events: Optional[Sequence[torch.cuda.Event]]):
+        self.events = events
+        self.phase = None
+
+    def __call__(self, i: int):
+        if self.events is not None:
+            self.events[i].record()
+        self.__exit__()
+        if i < len(PHASES):
+            self.phase = obs.span(PHASES[i])
+            self.phase.__enter__()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.phase is not None:
+            self.phase.__exit__(None, None, None)
+            self.phase = None
+
+
 def _update(state: TrainState, loss, mark):
     """Backward, the gradients summed over the ranks, the optimizer and
     schedule steps."""
@@ -270,36 +302,36 @@ def make_train_step(preprocess_cfg: Optional[PreprocessConfig], loss_cfg: LossCo
     ``{"loss": [], "stage_losses": [stages, 3] (h, d, u)}`` on the device.
     ``events``, five ``torch.cuda.Event``s, are recorded before the
     preprocess, after it, after the forward and loss, after the backward and
-    after the optimizer step, so a caller can time the step's parts.
+    after the optimizer step, so a caller can time the step's parts. While a
+    profiler runs, the step records the span ``train.step`` and, between the
+    same boundaries, its phases ``PHASES`` (``obs``).
     """
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None,
              events: Optional[Sequence[torch.cuda.Event]] = None):
-        def mark(i):
-            if events is not None:
-                events[i].record()
+        with obs.span("train.step"), _Boundaries(events) as mark:
+            mark(0)
+            if preprocess_cfg is None:
+                data = batch
+            else:
+                with torch.no_grad():
+                    data = preprocess_batch(
+                        batch, preprocess_cfg, augment=augment, generator=generator,
+                        draws=_local_draws(preprocess_cfg, augment, batch, generator, draws))
+            sw = _sample_weight(data.get("valid"), batch.get("weight"))
+            mark(1)
 
-        mark(0)
-        if preprocess_cfg is None:
-            data = batch
-        else:
-            with torch.no_grad():
-                data = preprocess_batch(
-                    batch, preprocess_cfg, augment=augment, generator=generator,
-                    draws=_local_draws(preprocess_cfg, augment, batch, generator, draws))
-        sw = _sample_weight(data.get("valid"), batch.get("weight"))
-        mark(1)
-
-        model = state.model.train()
-        results = model(*model_inputs(data))
-        every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d, sw)
-        loss = total_loss(every, loss_cfg.alpha)
-        mark(2)
-        _update(state, loss, mark)
-        loss, stage = _global(loss, _stacked(every))
-        return {"loss": loss.detach(), "stage_losses": stage}
+            model = state.model.train()
+            results = model(*model_inputs(data))
+            every = stage_losses(results, _targets(data), loss_cfg.lambda_h, loss_cfg.lambda_d,
+                                 sw)
+            loss = total_loss(every, loss_cfg.alpha)
+            mark(2)
+            _update(state, loss, mark)
+            loss, stage = _global(loss, _stacked(every))
+            return {"loss": loss.detach(), "stage_losses": stage}
 
     return step
 
@@ -310,31 +342,28 @@ def make_train_step_fullreg(preprocess_cfg: PreprocessConfig):
     ``make_train_step_fullreg``): always augmented, the uvd loss alone over
     the valid samples (a ``weight`` field is not read, as in JAX). Returns
     ``{"loss", "stage_losses" [stages, 3]}`` with the uvd loss in the last
-    column; ``events`` as ``make_train_step``'s."""
+    column; ``events`` and the spans as ``make_train_step``'s."""
     _require_cfg(preprocess_cfg)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None,
              events: Optional[Sequence[torch.cuda.Event]] = None):
-        def mark(i):
-            if events is not None:
-                events[i].record()
-
-        mark(0)
-        with torch.no_grad():
-            data = preprocess_batch(
-                batch, preprocess_cfg, augment=True, generator=generator,
-                draws=_local_draws(preprocess_cfg, True, batch, generator, draws))
-        mark(1)
-        model = state.model.train()
-        per_stage = uvd_losses(model(*model_inputs(data)), data["uvd"],
-                               data["valid"].to(torch.float32))
-        loss = sum(per_stage)
-        mark(2)
-        _update(state, loss, mark)
-        loss, stage = _global(loss, _padded(per_stage))
-        return {"loss": loss.detach(), "stage_losses": stage}
+        with obs.span("train.step"), _Boundaries(events) as mark:
+            mark(0)
+            with torch.no_grad():
+                data = preprocess_batch(
+                    batch, preprocess_cfg, augment=True, generator=generator,
+                    draws=_local_draws(preprocess_cfg, True, batch, generator, draws))
+            mark(1)
+            model = state.model.train()
+            per_stage = uvd_losses(model(*model_inputs(data)), data["uvd"],
+                                   data["valid"].to(torch.float32))
+            loss = sum(per_stage)
+            mark(2)
+            _update(state, loss, mark)
+            loss, stage = _global(loss, _padded(per_stage))
+            return {"loss": loss.detach(), "stage_losses": stage}
 
     return step
 

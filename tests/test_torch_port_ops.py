@@ -555,6 +555,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
            "train.checkpoint", "utils.seeding", "utils.viz", "data.sources", "data.loader",
            "serve_artifact", "serve_http", "tools.export_model", "models.fullregression",
            "models.paired_heads", "parallel", "parallel.mesh", "compat.verify_parity",
-           "cli.train_fullregression", "cli.test_fullregression", "tools.bench_paired_model"}
+           "cli.train_fullregression", "cli.test_fullregression", "tools.bench_paired_model",
+           "obs"}
     assert {pkg + m for m in new} <= mods, sorted({pkg + m for m in new} - mods)
     assert len(mods) >= 52  # 42 modules + 10 subpackages
