@@ -279,6 +279,12 @@ class InstanceNorm(nn.Module):
 
     eps = 1e-5
     anchor_momentum = 0.9
+    # the EMA's factors as float32 rounds them, 0.9f and 1.0f - 0.9f =
+    # 0.10000002f (the JAX package's), kept as Python floats: a kernel takes
+    # a scalar operand by value, where a tensor made on the card each call
+    # would be a copy from pageable memory, and with it a stream synchronise
+    _ema_keep = float(torch.tensor(anchor_momentum, dtype=torch.float32))
+    _ema_take = float(1.0 - torch.tensor(anchor_momentum, dtype=torch.float32))
 
     def __init__(self, channels: int, method: str = "instance"):
         super().__init__()
@@ -313,12 +319,11 @@ class InstanceNorm(nn.Module):
         y, mean = _InstanceNormFn.apply(x, self.weight, self.bias, anchor, self.method, self.eps)
         if anchored and self.training:
             with torch.no_grad():
-                m = torch.tensor(self.anchor_momentum, dtype=torch.float32, device=x.device)
                 # the batch mean of the per-(B, C) means, summed in f64 (and
                 # over the ranks in a distributed run)
                 batch_mean = mesh.global_mean(mean.sum(dim=(0, 2, 3), dtype=torch.float64),
                                               mean.shape[0]).to(torch.float32)
-                self.anchor.copy_(m * self.anchor + (1.0 - m) * batch_mean)
+                self.anchor.copy_(self.anchor * self._ema_keep + batch_mean * self._ema_take)
                 self.anchor_n += 1.0
         return y.to(x.dtype)
 

@@ -42,7 +42,8 @@ from pixelwiseregression_tpu_torch.ops import fused_normrelu as tnr
 from pixelwiseregression_tpu_torch.ops import image as timage
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
 from pixelwiseregression_tpu_torch.serve import Predictor
-from pixelwiseregression_tpu_torch.train.loop import LossConfig, create_train_state, make_train_step
+from pixelwiseregression_tpu_torch.train.loop import (LossConfig, create_train_state, make_train_step,
+                                                      model_inputs)
 from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
 pytestmark = pytest.mark.cuda
@@ -479,6 +480,60 @@ def test_train_step_on_a_preprocessed_batch_equals_the_raw_step(device, weight):
     want = s_raw.model.state_dict()
     for name, t in s_pre.model.state_dict().items():
         assert torch.equal(t, want[name]), name
+
+
+def test_full_width_train_step_makes_no_sync_after_the_preprocess(device):
+    """One f32 train step of the full-width NYU PixelwiseRegression (14
+    joints, two stages, 128 features, level 4, 128/64 crops, anchored norms,
+    K1 and K2) at batch 2, on a batch preprocessed on the card before it
+    (the preprocess still copies from pageable memory): under
+    ``torch.cuda.set_sync_debug_mode("error")`` its forward, backward and
+    optimizer step raise nothing. The anchors, calibrated by three
+    train-mode forwards on the CPU, then match the same step's on the CPU
+    (plain decoder): anchor_n moved once, and each norm's anchors part by
+    at most 1e-3 of how far the step moved them (the bound these tests hold
+    output-side gradients to). Card and CPU round the forward apart (cuDNN's
+    FFT convs): over two seeds the widest norm read 2.0e-4, and 13-16 of the
+    82 norms had an element outside the CPU JAX-parity rtol 1e-5 atol 1e-6,
+    though the update's own arithmetic is bit-exact
+    (tests/test_torch_port_norm_ema.py). A lost update reads 1."""
+    spec = SPECS["NYU"]
+    torch.manual_seed(8)
+    host = PixelwiseRegression(14, stage=2, features=128, level=4, norm_method="instance_anchored",
+                               decoder="torch")
+    raw = make_synthetic_raw_batch(2, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=150.0, com_z=450.0, seed=9)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    draws = draw_augmentation(2, torch.Generator(device=device).manual_seed(10), device)
+    cfg = PreprocessConfig(fx=spec.camera.fx, fy=spec.camera.fy, halfu=spec.camera.halfu,
+                           halfv=spec.camera.halfv, image_size=128, label_size=64,
+                           using_rotation=True, using_scale=True, using_shift=True)
+    with torch.no_grad():
+        data = preprocess_batch(batch, cfg, augment=True, draws=draws)
+        data_cpu = {k: v.cpu() for k, v in data.items()}
+        for _ in range(3):
+            host.train()(*model_inputs(data_cpu))
+    before = {k: v.clone() for k, v in host.state_dict().items() if k.endswith("anchor")}
+    card = PixelwiseRegression(14, stage=2, features=128, level=4,
+                               norm_method="instance_anchored", decoder="cuda").to(device)
+    card.load_state_dict(host.state_dict())
+    loss_cfg = LossConfig(lambda_h=1.0, lambda_d=0.01, alpha=1.0)
+    s_card = create_train_state(card, lr=1e-3, steps_per_epoch=568)
+    s_host = create_train_state(host, lr=1e-3, steps_per_epoch=568)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m_card = make_train_step(None, loss_cfg)(s_card, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    m_host = make_train_step(None, loss_cfg)(s_host, data_cpu)
+    assert torch.isfinite(m_card["loss"]) and torch.isfinite(m_host["loss"])
+    got, want = card.state_dict(), host.state_dict()
+    assert len(before) == 82
+    for k, b in before.items():
+        gap = float((got[k].cpu() - want[k]).norm() / (want[k] - b).norm())
+        assert gap <= 1e-3, (k, gap)
+        assert float(got[k + "_n"]) == float(want[k + "_n"]) == 4.0, k
 
 
 @pytest.mark.parametrize("h,w", [(128, 128), (480, 640)])
