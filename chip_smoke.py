@@ -11,8 +11,9 @@ backward; K3, the fused conv + instance-norm unit; K4, the whole
 hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 
 1. K1, the forward kernel, at the serving and training shapes
-   ([32|128|256, 14, 64*64]: the on-chip plan) in all four dtype forms and
-   at [8, 14, 128*128] (the streamed plan), each with one all-zero mask
+   ([32|128|256, 14, 64*64]: the on-chip plan) in all four dtype forms, at
+   HANDS 2017's serving shape [32, 21, 64*64] in f32, and at
+   [8, 14, 128*128] (the streamed plan), each with one all-zero mask
    row, against its plain PyTorch version, two calls bit-identical, the
    plan of each shape asserted; the main-path cases timed with CUDA events;
 2. K2, the backward kernel, through the decoder's autograd.Function at
@@ -27,7 +28,11 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 3. the serving path: the full-width default model (NYU: 14 joints, 2 stages,
    128 features, level 4, instance_anchored norm, bf16, batch 32) on
    weights made from a seed answers four requests of synthetic 480x640
-   frames through K1, checked against the plain decoder and timed;
+   frames through K1, checked against the plain decoder and timed; then
+   HANDS 2017's box requests (21 joints, instance norm, f32, batch 32): one
+   request of 32 frames with a box each and no centre, localised on the
+   card, through K1 (launches read from that request), against the plain
+   decoder;
 4. a small f32 Predictor on the card against the same model on the CPU;
 5. the training path (the main path of this script): the same full-width
    model, bf16, batch 128, augmented, takes 10 train steps through K1 and
@@ -191,6 +196,7 @@ import torch
 SEED = 0
 H = W = 64          # label_size: the decoder's map side
 J = 14              # NYU joints
+HAND17_J = 21       # HANDS 2017 joints: the box-serving path's K1 rows
 STAGES = 2
 REQUEST_SIZES = (32, 17, 1, 32)
 # serving: the plain and kernel decoders feed stage 2 with bf16 heatmaps
@@ -276,25 +282,29 @@ def _interleaved_ms(fns, runs=7, iters=20):
     return out
 
 
-def _decoder_rows(device, b, hw, gen, dtype=torch.float32):
-    """Decoder inputs [b, J, hw] (label and mask [b, 1, hw]) in dtype; sample
-    0's mask is all zero (den = 1e-14: must give finite zeros)."""
-    x = 3 * torch.randn(b, J, hw, generator=gen, device=device)
-    dm = torch.randn(b, J, hw, generator=gen, device=device)
+def _decoder_rows(device, b, hw, gen, dtype=torch.float32, joints=J):
+    """Decoder inputs [b, joints, hw] (label and mask [b, 1, hw]) in dtype;
+    sample 0's mask is all zero (den = 1e-14: must give finite zeros)."""
+    x = 3 * torch.randn(b, joints, hw, generator=gen, device=device)
+    dm = torch.randn(b, joints, hw, generator=gen, device=device)
     label = torch.randn(b, 1, hw, generator=gen, device=device)
     mask = (torch.rand(b, 1, hw, generator=gen, device=device) > 0.4).float()
     mask[0] = 0.0
-    w = torch.rand(J, generator=gen, device=device) + 0.5
+    w = torch.rand(joints, generator=gen, device=device) + 0.5
     return (*(t.to(dtype) for t in (x, dm, label, mask)), w)
 
 
-# K1 against its plain version: (batch, map side, maps in, heatmaps out,
-# timed). 64x64 is the main path's map (the on-chip plan); 128x128 a row too
-# long to hold on chip (the streamed plan); all four dtype forms on each
+# K1 against its plain version: (batch, map side, joints, maps in, heatmaps
+# out, timed). 64x64 is the main path's map (the on-chip plan); 128x128 a row
+# too long to hold on chip (the streamed plan); all four dtype forms on each;
+# [32, 21, 64*64] f32 the HANDS 2017 box-serving cell's rows
 KERNEL_CASES = (
-    *((b, H, dt, dt, True) for b in (32, TRAIN_BATCH, 256) for dt in (torch.float32, torch.bfloat16)),
-    (32, H, torch.float32, torch.bfloat16, False), (32, H, torch.bfloat16, torch.float32, False),
-    *((8, 2 * H, dt, ht, False) for dt in (torch.float32, torch.bfloat16)
+    *((b, H, J, dt, dt, True) for b in (32, TRAIN_BATCH, 256)
+      for dt in (torch.float32, torch.bfloat16)),
+    (32, H, J, torch.float32, torch.bfloat16, False),
+    (32, H, J, torch.bfloat16, torch.float32, False),
+    (32, H, HAND17_J, torch.float32, torch.float32, True),
+    *((8, 2 * H, J, dt, ht, False) for dt in (torch.float32, torch.bfloat16)
       for ht in (torch.float32, torch.bfloat16)),
 )
 
@@ -302,12 +312,12 @@ KERNEL_CASES = (
 def phase_kernel(cs, plain, device):
     """Kernel vs plain version on the card, on both plans and in all four
     dtype forms, two calls bit-identical; returns the timed cases (call
-    time by CUDA events)."""
+    time by CUDA events) by (batch, maps in, joints)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     cases = {}
-    for b, side, dtype, hm_dtype, timed in KERNEL_CASES:
+    for b, side, joints, dtype, hm_dtype, timed in KERNEL_CASES:
         hw = side * side
-        x, dm, label, mask, w = _decoder_rows(device, b, hw, gen, dtype)
+        x, dm, label, mask, w = _decoder_rows(device, b, hw, gen, dtype, joints)
         plan = cs.plan(hw)["plan"]
         assert plan == ("on_chip" if side <= H else "streamed"), (side, plan)
 
@@ -334,11 +344,12 @@ def phase_kernel(cs, plain, device):
         err = max(float((hm_k.float() - hm_p.float()).abs().max()),
                   float((uvd_k - uvd_p).abs().max()))
         form = f"{_DT[dtype]}->{_DT[hm_dtype]}"
-        line = f"kernel softargmax_fwd [{b},{J},{hw}] {form} plan {plan}: max_abs_err={err:.3e}"
+        line = (f"kernel softargmax_fwd [{b},{joints},{hw}] {form} plan {plan}: "
+                f"max_abs_err={err:.3e}")
         if timed:
             ms, plain_ms = _median_ms(kernel), _median_ms(reference)
             line += f" call_ms={ms:.5f} plain_ms={plain_ms:.5f}"
-            cases[(b, _DT[dtype])] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            cases[(b, _DT[dtype], joints)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         print(line)
         del x, dm, label, mask, hm_k, hm_p, again
     return cases
@@ -424,6 +435,59 @@ def phase_serve(cs, device):
     for d, vals in fps.items():
         print(f"serve frames/s decoder={d} batch=32: median {statistics.median(vals):.1f} "
               f"of {[round(v, 1) for v in vals]}")
+    return launches
+
+
+def phase_serve_boxes(cs, device):
+    """HANDS 2017's box requests at full width (21 joints, instance norm,
+    f32, batch 32): one request of 32 synthetic 480x640 frames, a hand
+    before a slanted wall, with a box each and no centre, through the cuda
+    and the plain decoder from the same weights; the K1 launches of the
+    request, asserted; the same centres from both; the answers within
+    NORM_GAP_BOUND normalized. Returns the request's K1 launches."""
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.serve import Predictor
+    from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
+
+    spec = SPECS["HAND17"]
+    assert spec.joint_number == HAND17_J, spec.joint_number
+    torch.manual_seed(SEED)
+    state = PixelwiseRegression(HAND17_J, stage=STAGES, features=128, level=4, kernel_size=3,
+                                norm_method="instance").state_dict()
+    kw = dict(batch_size=32, stages=STAGES, features=128, level=4, label_size=64,
+              norm_method="instance", heatmap_method="softmax", filter_size=3)
+    preds = {d: Predictor.from_state_dict(state, "HAND17", device, decoder=d, **kw)
+             for d in ("cuda", "torch")}
+    raw = make_synthetic_raw_batch(32, spec.frame_h, spec.frame_w, HAND17_J, fx=spec.camera.fx,
+                                   fy=spec.camera.fy, cube=spec.cube_size, com_z=500.0,
+                                   seed=SEED)
+    # a wall 150-450 mm behind the hand, so that the box's cuts remove pixels
+    xx = np.arange(spec.frame_w)[None, None, :]
+    frames = np.where(raw["frame"] > 0, raw["frame"],
+                      np.round(800.0 + (xx - spec.frame_w / 2) * 1.0)).astype(np.float32)
+    s = raw["box_size"][:, None].astype(np.float64) / 2
+    boxes = np.concatenate([raw["com"][:, :2] - s, 2 * s, 2 * s], axis=1)
+
+    before = cs.LAUNCHES
+    out = preds["cuda"].predict(frames, boxes=boxes)
+    torch.cuda.synchronize()
+    launches = cs.LAUNCHES - before
+    assert launches == STAGES, f"{launches} K1 launches for one box request"
+    ref = preds["torch"].predict(frames, boxes=boxes)
+    assert np.array_equal(out["com"], ref["com"]), "the decoders' requests localised apart"
+    for key in ("uvd", "xyz"):
+        assert out[key].shape == (32, HAND17_J, 3) and np.isfinite(out[key]).all(), key
+    d = np.abs(out["uvd"] - ref["uvd"]).astype(np.float64)
+    half = spec.cube_size / out["com"][:, 2] * spec.camera.fx
+    gap_norm = max(float((d[..., :2] / (2 * half[:, None, None])).max()),
+                   float((d[..., 2] / spec.cube_size).max()))
+    print(f"serve HAND17 boxes stages={STAGES} f32 batch=32 J={HAND17_J}: K1 launches={launches} "
+          f"centre u {out['com'][:, 0].min():.2f}-{out['com'][:, 0].max():.2f} "
+          f"d {out['com'][:, 2].min():.1f}-{out['com'][:, 2].max():.1f} mm; "
+          f"largest gap cuda vs torch decoder {gap_norm:.3e} normalized, "
+          f"{float(d[..., :2].max()):.4f} px, {float(d[..., 2].max()):.4f} mm")
+    assert gap_norm <= NORM_GAP_BOUND, f"decoders disagree by {gap_norm:.3e} normalized"
     return launches
 
 
@@ -2928,6 +2992,7 @@ def main() -> int:
     bwd = phase_backward(cs, soft_argmax_decode_flat, device)
     dev = phase_decoder_device(device)
     serve_launches = phase_serve(cs, device)
+    box_launches = phase_serve_boxes(cs, device)
     phase_reference(device)
     train_launches, train_ref = phase_train(cs, device)
     t = time.perf_counter()
@@ -2994,7 +3059,7 @@ def main() -> int:
                                  "k4_call": hourglass["statistics_launches"]},
         by_shape_device_us={k: v for k, v in norm_shapes.items() if k != "k4_statistics_us"},
         k4_statistics_us=hourglass["statistics_us"])
-    main_fwd, main_bwd = fwd[(TRAIN_BATCH, "f32")], bwd[TRAIN_BATCH]
+    main_fwd, main_bwd = fwd[(TRAIN_BATCH, "f32", J)], bwd[TRAIN_BATCH]
     head = units[("head_conv", "bf16")]
 
     def timing(key):
@@ -3008,7 +3073,8 @@ def main() -> int:
         {"name": "softargmax_fwd", "route": "cuda", "source": source.format("softargmax_fwd"),
          "replaces": "pixelwiseregression_tpu/ops/pallas_softargmax.py:50",
          "launches": train_launches[0],
-         "launches_by_path": {"serve": serve_launches, "train": train_launches[0],
+         "launches_by_path": {"serve": serve_launches, "serve_boxes": box_launches,
+                              "train": train_launches[0],
                               "train_preprocessed": pre_launches[0],
                               "cli_train": cli_launches["K1_train"],
                               "cli_test": cli_launches["K1_test"],

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -25,6 +26,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _lib = None
 _bound: dict[str, object] = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -85,16 +87,23 @@ def build() -> tuple[Path, str]:
 
 
 def function(name: str, argtypes: list, restype=ctypes.c_int):
-    """The C entry point ``name`` of the library, built and loaded on first use."""
+    """The C entry point ``name`` of the library, built and loaded on first use.
+
+    One thread builds and binds at a time: the build's files are named by the
+    process, so two threads of a service whose first requests arrive
+    together would otherwise write the same files."""
     global _lib
     fn = _bound.get(name)
     if fn is None:
-        if _lib is None:
-            _lib = ctypes.CDLL(str(build()[0]))
-        fn = getattr(_lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-        _bound[name] = fn
+        with _lock:
+            fn = _bound.get(name)
+            if fn is None:
+                if _lib is None:
+                    _lib = ctypes.CDLL(str(build()[0]))
+                fn = getattr(_lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                _bound[name] = fn
     return fn
 
 

@@ -60,8 +60,10 @@ def _resize_taps(out_size: int, src_size: torch.Tensor):
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """cv2.resize(img, (out_w, out_h)) with INTER_LINEAR over the last two axes."""
     h, w = img.shape[-2:]
-    r0, r1, wr = _resize_taps(out_h, torch.tensor(h, device=img.device))
-    c0, c1, wc = _resize_taps(out_w, torch.tensor(w, device=img.device))
+    # sizes filled on the device: torch.tensor would copy them from pageable
+    # host memory and wait on the stream
+    r0, r1, wr = _resize_taps(out_h, torch.full((), h, dtype=torch.int64, device=img.device))
+    c0, c1, wc = _resize_taps(out_w, torch.full((), w, dtype=torch.int64, device=img.device))
     rows = img[..., r0, :] * (1.0 - wr)[:, None] + img[..., r1, :] * wr[:, None]
     return rows[..., c0] * (1.0 - wc) + rows[..., c1] * wc
 

@@ -20,6 +20,13 @@ JAX decoders.
 ``serve_artifact.export_artifact`` exports it, so the artifact computes
 what the live ``Predictor`` computes.
 
+``predict(frames, boxes=...)`` serves requests that come with a hand
+detector's boxes in place of centres (HANDS 2017's test protocol): the
+device finds each hand in its box and computes the crop integers from that
+centre (``ops/localize.py``), batched over the request and with nothing read
+back before the forward is queued; the network sees the cleaned frame. The
+artifact and the HTTP server take centres only.
+
 ``fullregression=True`` serves a FullRegression checkpoint (the same
 request and reply; no decoder, so no kernel: its last stage's output is
 the uvd). int8 quant is refused there, as in JAX (``serve.py:104-108``).
@@ -33,7 +40,8 @@ CPU replicas). ``export_artifact`` refuses a data-parallel Predictor.
 
 Example:
     pred = Predictor.from_checkpoint("Model/NYU_default_final.pt", "NYU", "cuda:0")
-    out = pred.predict(frames, coms)   # -> {"uvd": ..., "xyz": ...}
+    out = pred.predict(frames, coms)   # -> {"uvd": ..., "xyz": ..., "com": ...}
+    out = pred.predict(frames, boxes=boxes)
 
 ``from_checkpoint`` reads the port's and the reference's ``.pt`` files and
 the JAX package's msgpack ``.ckpt`` (``train/checkpoint.py``, without jax).
@@ -54,6 +62,7 @@ from pixelwiseregression_tpu_torch.data.sources import SPECS, DatasetSpec
 from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
 from pixelwiseregression_tpu_torch.models.layers import calibrating
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.ops.localize import box_bounds, localize
 from pixelwiseregression_tpu_torch.serve_artifact import _build_batch, _device_batch
 from pixelwiseregression_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -61,6 +70,25 @@ from pixelwiseregression_tpu_torch.train.checkpoint import load_checkpoint
 _MODEL_PARAM_ARGS = {"stage": "stages", "features": "features", "level": "level",
                      "label_size": "label_size", "norm_method": "norm_method",
                      "heatmap_method": "heatmap_method", "kernel_size": "filter_size"}
+
+
+def _build_box_batch(spec, batch_size: int, frames, boxes, cubes):
+    """Raw frames + a detector's boxes -> padded host batch for
+    ``ops.localize``: the frames as float32, each box's bounds
+    (``box_bounds``) and cube, float64. The centre and the crop integers are
+    the device's to compute."""
+    n = frames.shape[0]
+    if not 1 <= n <= batch_size:
+        raise ValueError(f"request size {n} is not in [1, {batch_size}]")
+    if len(boxes) != n:
+        raise ValueError(f"{len(boxes)} boxes for {n} frames")
+    cube = np.full(n, spec.cube_size) if cubes is None else np.asarray(cubes, np.float64)
+    host = {"frame": np.asarray(frames, np.float32),
+            "bounds": box_bounds(boxes, frames.shape[1], frames.shape[2]), "cube": cube}
+    # padded rows repeat the last real one, as stack_records pads
+    pad = batch_size - n
+    return {k: np.ascontiguousarray(np.concatenate([v, np.repeat(v[-1:], pad, 0)]) if pad else v)
+            for k, v in host.items()}, n
 
 
 class ServingFunction(nn.Module):
@@ -206,27 +234,41 @@ class Predictor:
                 kwargs[arg] = ckpt["model_param"][key]
         return cls.from_state_dict(ckpt["state_dict"], dataset, device, **kwargs)
 
-    def predict(self, frames: np.ndarray, coms: np.ndarray,
-                cubes: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    def predict(self, frames: np.ndarray, coms: Optional[np.ndarray] = None,
+                cubes: Optional[np.ndarray] = None,
+                boxes: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Predict joints for up to ``batch_size`` raw depth frames.
 
         Args:
           frames: ``[N, H, W]`` raw depth in mm (dataset frame size).
           coms: ``[N, 3]`` hand centers (u, v, depth-mm).
           cubes: ``[N]`` crop cube half-sizes (dataset default if None).
+          boxes: ``[N, 4]`` a detector's boxes (ustart, vstart, du, dv) in
+            frame pixels, as HANDS 2017's ``BoundingBox.txt`` gives them,
+            in place of ``coms``: the device finds each hand in its box
+            (``ops.localize``) and the network sees the cleaned frame.
 
-        Returns ``uvd`` ``[N, J, 3]`` (frame coords + mm) and ``xyz``
-        ``[N, J, 3]`` (world mm), both f32 numpy.
+        Exactly one of ``coms`` and ``boxes`` is given. Returns ``uvd``
+        ``[N, J, 3]`` (frame coords + mm) and ``xyz`` ``[N, J, 3]`` (world
+        mm), both f32 numpy, and ``com`` ``[N, 3]`` float64, the centre
+        used. A box with no positive depth raises ``ValueError``.
 
         While a profiler runs, a call records the span ``serve.predict`` and
         in it (``obs``) ``serve.build_batch`` (the host batch),
-        ``serve.to_device`` (its copy to a replica), ``serve.launch`` (the
-        serving function's launches, calibration included) and
-        ``serve.wait`` (the gather of the answers to the host).
+        ``serve.to_device`` (its copy to a replica), ``serve.localize`` (with
+        boxes: the localisation's launches), ``serve.launch`` (the serving
+        function's launches, calibration included) and ``serve.wait`` (the
+        gather of the answers to the host).
         """
+        if (coms is None) == (boxes is None):
+            raise ValueError("predict takes exactly one of coms and boxes")
         with obs.span("serve.predict"):
             with obs.span("serve.build_batch"):
-                batch, count = _build_batch(self.spec, self.batch_size, frames, coms, cubes)
+                if boxes is None:
+                    batch, count = _build_batch(self.spec, self.batch_size, frames, coms, cubes)
+                else:
+                    batch, count = _build_box_batch(self.spec, self.batch_size, frames, boxes,
+                                                    cubes)
             # each replica runs its rows of the padded batch; every launch is
             # queued before the first result is read, so the cards overlap
             rows = self.batch_size // len(self.replicas)
@@ -236,13 +278,30 @@ class Predictor:
                     with obs.span("serve.to_device"):
                         part = _device_batch({k: v[i * rows:(i + 1) * rows]
                                               for k, v in batch.items()}, d)
+                    if boxes is not None:
+                        with obs.span("serve.localize"):
+                            real = min(max(count - i * rows, 0), rows)
+                            part, com, empty = localize(part["frame"], part["bounds"],
+                                                        part["cube"], self.spec.camera, real)
                     with obs.span("serve.launch"):
                         if self.calib_left > 0:
                             with calibrating(serving.model):
                                 serving(part)
-                        outs.append(serving(part))
+                        out = serving(part)
+                    if boxes is not None:
+                        # one gather for the answers, the centres and the flags
+                        out = torch.cat([out.to(torch.float64).flatten(1), com,
+                                         empty.to(torch.float64)[:, None]], dim=1)
+                    outs.append(out)
                 if self.calib_left > 0:
                     self.calib_left -= 1
                 with obs.span("serve.wait"):
-                    uvd = torch.cat([o.cpu() for o in outs])[:count].numpy()
-            return {"uvd": uvd, "xyz": self.spec.camera.uvd2xyz(uvd)}
+                    got = torch.cat([o.cpu() for o in outs])[:count].numpy()
+            if boxes is None:
+                return {"uvd": got, "xyz": self.spec.camera.uvd2xyz(got),
+                        "com": np.asarray(coms, np.float64)[:, :3]}
+            bad = np.flatnonzero(got[:, -1])
+            if len(bad):
+                raise ValueError(f"no positive depth in the box of request row {int(bad[0])}")
+            uvd = got[:, :-4].astype(np.float32).reshape(count, -1, 3)
+            return {"uvd": uvd, "xyz": self.spec.camera.uvd2xyz(uvd), "com": got[:, -4:-1]}

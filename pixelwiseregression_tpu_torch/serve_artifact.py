@@ -63,7 +63,9 @@ def _build_batch(spec, batch_size: int, frames, coms, cubes):
         com = np.asarray(coms[i], np.float64)
         cube = float(cubes[i])
         bbox = load_bbox(spec, com, cube) if spec.bbox_margin is not None else None
-        records.append(make_record(spec, frames[i].astype(np.float64), None, com, cube, bbox))
+        # make_record reads only the frame's shape and its float32 values: a
+        # float64 copy first would round to the same float32 numbers
+        records.append(make_record(spec, frames[i], None, com, cube, bbox))
     batch, count = stack_records(records, pad_to=batch_size)
     batch.pop("weight")
     return batch, count

@@ -290,3 +290,27 @@ def test_jax_artifact_is_refused_by_its_header(tmp_path, exported):
     assert header["format"] == "torch.export" and "platforms" not in header
     with pytest.raises(Exception):
         JaxArtifact.load(exported[1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.uint16])
+def test_host_batch_equals_the_jax_packages_float64_round_trip(dtype):
+    """The host batch casts each frame to float32 once; the JAX package's
+    ``_build_batch`` goes through float64 first, which rounds to the same
+    float32 numbers for float32, float64 and integer frames."""
+    from pixelwiseregression_tpu.serve_artifact import _build_batch as jax_build_batch
+
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.serve_artifact import _build_batch
+
+    spec = SPECS["NYU"]
+    rng = np.random.RandomState(4)
+    frames = rng.uniform(0, 3000, (3, spec.frame_h, spec.frame_w))
+    frames = (frames.astype(np.float32) if dtype == np.float32 else
+              frames if dtype == np.float64 else frames.astype(np.uint16))
+    coms = np.array([[320.5, 240.25, 600.0], [100.0, 50.0, 450.5], [600.0, 400.0, 900.0]])
+    got, n = _build_batch(spec, 4, frames, coms, None)
+    want, m = jax_build_batch(spec, 4, frames, coms, None)
+    assert n == m == 3 and set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+        assert got[k].dtype == np.asarray(want[k]).dtype, k

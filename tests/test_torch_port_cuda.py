@@ -7,7 +7,8 @@ which a serving artifact exported on the CPU calls on the card), the int8
 conv's product on the card vs the CPU, a train step through K1 and K2 (on raw and on preprocessed batches),
 cv2's fixed-point warp card vs CPU, both inference engines through K3, K4 and K1, and the CLIs: Loader batches
 through pinned memory, run_training through K1 and K2 and run_inference
-through K1.
+through K1; the localisation of requests from a detector's boxes card vs
+CPU, and such a request queued with no sync up to its gather.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -1359,3 +1360,69 @@ def test_two_ranks_on_one_card_through_gloo(device, tmp_path):
         assert np.isfinite(float(out["train"]["loss"]))
     for name, t in outs[0]["state"].items():
         assert torch.equal(t, outs[1]["state"][name]), name
+
+
+def _box_request(n, seed):
+    """``n`` frames of the benchmark's HANDS 2017 scene with their boxes."""
+    from port_bench import scene
+    spec = SPECS["HAND17"]
+    return scene.frames_and_boxes(n, spec.frame_h, spec.frame_w, fx=spec.camera.fx,
+                                  fy=spec.camera.fy, seed=seed)
+
+
+def test_box_localisation_on_the_card_equals_the_cpu(device):
+    """``ops.localize`` on a whole request (32 frames of the benchmark's
+    scene, 480x640): the card's cleaned frames, centres and crop integers
+    equal the CPU's float64 path (its sums are exact, so their order does
+    not matter), which the CPU tests hold against the host's
+    ``_load_raw_bb`` and ``make_record``."""
+    from pixelwiseregression_tpu_torch.ops import localize as loc
+    spec = SPECS["HAND17"]
+    req = _box_request(32, 2**31 + 41)
+    frames = torch.from_numpy(req["frame"])
+    bounds = torch.from_numpy(loc.box_bounds(req["box"], spec.frame_h, spec.frame_w))
+    cube = torch.full((32,), spec.cube_size, dtype=torch.float64)
+    want, want_com, want_empty = loc.localize(frames, bounds, cube, spec.camera)
+    got, com, empty = loc.localize(frames.to(device), bounds.to(device), cube.to(device),
+                                   spec.camera)
+    assert not want_empty.any() and torch.equal(empty.cpu(), want_empty)
+    torch.testing.assert_close(com.cpu(), want_com, rtol=1e-9, atol=0)
+    for k in ("frame", "com_int", "bbox", "crop_top", "crop_left", "box_size", "cube"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_a_box_request_queues_without_a_sync_up_to_the_gather(device, monkeypatch):
+    """A full-width HAND17 Predictor (J=21, f32): a request with boxes runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` from its batch's copy
+    to the card to the gather of the answers (the localisation, the crop
+    integers, the preprocess, the forward and K1, queued with no sync),
+    counts its frames, and answers as on the second card call."""
+    from pixelwiseregression_tpu_torch import serve
+    from pixelwiseregression_tpu_torch.ops import localize as loc
+    torch.manual_seed(3)
+    state = PixelwiseRegression(21, stage=2, features=128, level=4).state_dict()
+    pred = Predictor.from_state_dict(state, "HAND17", device, batch_size=32)
+    req = _box_request(32, 2**31 + 43)
+    want = pred.predict(req["frame"], boxes=req["box"])
+    copy, span = serve._device_batch, serve.obs.span
+
+    def strict(batch, d):
+        out = copy(batch, d)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def loose(name):
+        if name == "serve.wait":
+            torch.cuda.set_sync_debug_mode("default")
+        return span(name)
+
+    monkeypatch.setattr(serve, "_device_batch", strict)
+    monkeypatch.setattr(serve.obs, "span", loose)
+    before, k1 = loc.LOCALIZED, tcuda.LAUNCHES
+    try:
+        got = pred.predict(req["frame"], boxes=req["box"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loc.LOCALIZED - before == 32 and tcuda.LAUNCHES - k1 == 2
+    np.testing.assert_array_equal(got["com"], want["com"])
+    np.testing.assert_allclose(got["uvd"], want["uvd"], rtol=0, atol=1e-3)

@@ -559,3 +559,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
            "obs"}
     assert {pkg + m for m in new} <= mods, sorted({pkg + m for m in new} - mods)
     assert len(mods) >= 52  # 42 modules + 10 subpackages
+
+
+def test_two_threads_build_and_bind_the_kernel_library_once(monkeypatch):
+    """Two threads whose first kernel calls meet (a service's first two
+    requests) build the library once: the build's files are named by the
+    process, so two builds at once would write the same files."""
+    import ctypes.util
+    import threading
+    import time
+
+    from pixelwiseregression_tpu_torch.ops import cuda_lib
+
+    libc = ctypes.util.find_library("c")
+    if libc is None:
+        pytest.skip("no C library to stand in for the kernels' library")
+    builds = []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)
+        return libc, ""
+
+    monkeypatch.setattr(cuda_lib, "build", slow_build)
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    monkeypatch.setattr(cuda_lib, "_bound", {})
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        cuda_lib.function("abs", [ctypes.c_int]))) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and len(got) == 2 and got[0] is got[1]
+    assert got[0](-3) == 3
