@@ -150,11 +150,16 @@ shape (its two summary lines printed), stage2_amplification on the MSRA
 fixture (one seed, 20 steps), check_data_layout on it, bench_http against
 serve_http over a live full-width Predictor, and test_samples' and get_sfr's
 compute functions on a small random-weight checkpoint (nothing is drawn).
+Before phase_tools, phase_conv3x3: the heads' f32 3x3 conv
+(csrc/conv3x3_f32.cu) at [128|32, 128, 64, 64] 128->128, its device time
+beside the f32 bound, cuDNN's f32 conv (TF32 off) as its heuristic picks it
+and in benchmark mode, and each one's largest error to a float64 conv.
 
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
 K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
-(K3's norm_kernel, K5's nr_kernel) or in the decoder's (K1, K2 and the
-dlabel kernel).
+(K3's norm_kernel, K5's nr_kernel), in the decoder's (K1, K2 and the
+dlabel kernel) or in the f32 3x3 conv's. With --conv it builds the kernels
+and runs phase_conv3x3 alone.
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile, through tools/profile_train.py; the JAX tools'
 synthetic raw frames): the breakdown that PERF.md's "Where the time goes"
@@ -227,6 +232,15 @@ PRE_STEPS = 3
 # within 1e-5 relative, count exactly
 PRE_EVAL_BOUND = 1e-5
 UNIT_BATCH = 256    # K3 and K4 alone, at bench.py's batch
+# the heads' f32 3x3 conv alone: the train cells' and the serving batch
+CONV_BATCHES = (128, 32)
+# conv3x3_f32 launches a full-width f32 forward: the heads' 128->128 3x3
+# convs, 3 a head, 2 heads a stage (a bf16, int8 or FullRegression forward: 0)
+CONVS = 6 * STAGES
+# the conv3x3_f32 launches of each main path the phases drive, by path,
+# each counter set to 0 just before the path and read just after it;
+# phase_conv3x3's own calls are not among them
+CONV_LAUNCHES = {}
 ENGINE_BATCH = 64   # the engines end to end
 FEATURES, LEVEL = 128, 4
 # K3 vs its plain version, bf16: at most this many bf16 ulps of the
@@ -355,6 +369,13 @@ def phase_kernel(cs, plain, device):
     return cases
 
 
+def _count_convs(path, n, want):
+    """Record ``n`` conv3x3_f32 launches on ``path`` in CONV_LAUNCHES and
+    assert that they are ``want``."""
+    CONV_LAUNCHES[path] = n
+    assert n == want, f"{path}: {n} conv3x3_f32 launches, expected {want}"
+
+
 def _requests(spec):
     from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
@@ -380,6 +401,7 @@ def phase_serve(cs, device):
     """The serving path at full width; returns the kernel launches of its main run."""
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.serve import Predictor
 
     spec = SPECS["NYU"]
@@ -399,7 +421,7 @@ def phase_serve(cs, device):
              for d in ("cuda", "torch")}
     requests = _requests(spec)
 
-    cs.LAUNCHES = 0
+    cs.LAUNCHES = cuda_conv.LAUNCHES = 0
     outs = []
     for raw in requests:
         before = cs.LAUNCHES
@@ -408,6 +430,7 @@ def phase_serve(cs, device):
     torch.cuda.synchronize()
     launches = cs.LAUNCHES
     assert launches == STAGES * len(requests), launches
+    _count_convs("serve_bf16", cuda_conv.LAUNCHES, 0)
 
     gap_px = gap_mm = gap_norm = 0.0
     for raw, out in zip(requests, outs):
@@ -447,6 +470,7 @@ def phase_serve_boxes(cs, device):
     NORM_GAP_BOUND normalized. Returns the request's K1 launches."""
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.serve import Predictor
     from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
@@ -470,10 +494,12 @@ def phase_serve_boxes(cs, device):
     boxes = np.concatenate([raw["com"][:, :2] - s, 2 * s, 2 * s], axis=1)
 
     before = cs.LAUNCHES
+    cuda_conv.LAUNCHES = 0
     out = preds["cuda"].predict(frames, boxes=boxes)
     torch.cuda.synchronize()
     launches = cs.LAUNCHES - before
     assert launches == STAGES, f"{launches} K1 launches for one box request"
+    _count_convs("serve_boxes", cuda_conv.LAUNCHES, CONVS)
     ref = preds["torch"].predict(frames, boxes=boxes)
     assert np.array_equal(out["com"], ref["com"]), "the decoders' requests localised apart"
     for key in ("uvd", "xyz"):
@@ -744,6 +770,7 @@ def phase_train(cs, device):
     from pixelwiseregression_tpu_torch.data.preprocess import draw_augmentation
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.train.loop import (LossConfig, make_eval_step,
                                                            make_train_step)
 
@@ -758,7 +785,7 @@ def phase_train(cs, device):
 
     state = _train_setup(device, "cuda", torch.bfloat16, state0, TRAIN_BATCH)
     torch.cuda.synchronize()
-    cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
+    cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = cuda_conv.LAUNCHES = 0
     losses, t = [], time.perf_counter()
     for i in range(TRAIN_STEPS):
         before = (cs.LAUNCHES, cs.BWD_LAUNCHES)
@@ -773,6 +800,7 @@ def phase_train(cs, device):
     launches = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
     # label_img needs no gradient: K2 is one kernel a call (no dlabel)
     assert launches == (STAGES * TRAIN_STEPS,) * 3, launches
+    _count_convs("train_bf16", cuda_conv.LAUNCHES, 0)
     assert all(np.isfinite(losses)), losses
     print(f"train NYU stages={STAGES} bf16 batch={TRAIN_BATCH} augmented: {TRAIN_STEPS} steps "
           f"in {seconds:.2f} s (first step included), launches K1={launches[0]} "
@@ -942,8 +970,10 @@ def phase_train_preprocessed(cs, device, ref):
 
 
 def phase_train_f32(cs, device):
-    """The training CLI's default precision (f32, --mixed_precision off) at batch 32."""
+    """The training CLI's default precision (f32, --mixed_precision off) at
+    batch 32: 3 steps, K1, K2 and conv3x3_f32 launches asserted."""
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.train.loop import LossConfig, make_train_step
 
     torch.manual_seed(SEED + 3)
@@ -954,12 +984,14 @@ def phase_train_f32(cs, device):
     batch = _raw_batch(device, 32, SEED + 30)
     gen = torch.Generator(device=device).manual_seed(SEED + 31)
     before = (cs.LAUNCHES, cs.BWD_LAUNCHES, cs.BWD_KERNEL_LAUNCHES)
+    cuda_conv.LAUNCHES = 0
     losses = [float(step(state, batch, generator=gen)["loss"]) for _ in range(3)]
     assert (cs.LAUNCHES - before[0], cs.BWD_LAUNCHES - before[1],
             cs.BWD_KERNEL_LAUNCHES - before[2]) == (3 * STAGES,) * 3
+    _count_convs("train_f32", cuda_conv.LAUNCHES, 3 * CONVS)
     assert all(np.isfinite(losses)), losses
-    print(f"train NYU stages={STAGES} f32 batch=32: 3 steps, losses "
-          f"{[round(v, 5) for v in losses]}")
+    print(f"train NYU stages={STAGES} f32 batch=32: 3 steps, conv3x3_f32 launches "
+          f"{CONV_LAUNCHES['train_f32']}, losses {[round(v, 5) for v in losses]}")
 
 
 def phase_train_reference(device):
@@ -1046,6 +1078,7 @@ def phase_cli(cs, device, smi_line):
     from pixelwiseregression_tpu_torch.cli.test_main import run_inference
     from pixelwiseregression_tpu_torch.cli.train_main import run_training
     from pixelwiseregression_tpu_torch.data.sources import get_source
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.serve import Predictor
 
     work = tempfile.mkdtemp(prefix="pwr_cli_")
@@ -1078,7 +1111,7 @@ def phase_cli(cs, device, smi_line):
             (STAGES, FEATURES, LEVEL, "instance_anchored")
         out = io.StringIO()
         torch.cuda.synchronize()
-        cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
+        cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = cuda_conv.LAUNCHES = 0
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
             best_epoch, best_err = run_training(args, "MSRA", subject=0)
@@ -1094,6 +1127,7 @@ def phase_cli(cs, device, smi_line):
               f"{best_epoch} at {best_err:.3f} mm")
         assert len(epochs) == CLI_EPOCHS and all(np.isfinite(e[0]) for e in epochs), epochs
         assert train == (STAGES * (steps + val_batches), STAGES * steps, STAGES * steps), train
+        _count_convs("cli_train_bf16", cuda_conv.LAUNCHES, 0)
         assert np.isfinite(best_err)
         final = os.path.join(work, "Model", "MSRA_default_subject0_final.pt")
         ckpt = torch.load(final, map_location="cpu", weights_only=True)
@@ -1102,21 +1136,24 @@ def phase_cli(cs, device, smi_line):
         assert ckpt["step"] == (best_epoch + 1) * steps_per_epoch and "optimizer" in ckpt
         assert all(torch.isfinite(v).all() for v in ckpt["state_dict"].values())
 
-        results, test_launches = {}, {}
+        results, test_launches, test_convs = {}, {}, {}
         for decoder in ("cuda", "torch"):
             targs = make_test_parser(msra=True).parse_args(
                 ["--subject", "0", "--batch_size", str(CLI_BATCH), "--decoder", decoder,
                  "--data_path", data])
-            cs.LAUNCHES = 0
+            cs.LAUNCHES = cuda_conv.LAUNCHES = 0
             with contextlib.redirect_stdout(io.StringIO()) as text:
                 name, fps = run_inference(targs, "MSRA", subject=0)
             torch.cuda.synchronize()
-            test_launches[decoder] = cs.LAUNCHES
+            test_launches[decoder], test_convs[decoder] = cs.LAUNCHES, cuda_conv.LAUNCHES
             results[decoder] = np.loadtxt(os.path.join(work, name))
             print(f"cli test decoder={decoder} f32: {fps:.1f} frames/s, K1 launches "
-                  f"{cs.LAUNCHES}; {text.getvalue().strip().splitlines()[-1]}")
+                  f"{cs.LAUNCHES}, conv3x3_f32 launches {cuda_conv.LAUNCHES}; "
+                  f"{text.getvalue().strip().splitlines()[-1]}")
         test_batches = -(-lines["test"] // CLI_BATCH)
         assert test_launches == {"cuda": STAGES * test_batches, "torch": 0}, test_launches
+        for decoder, n in test_convs.items():
+            _count_convs(f"cli_test_{decoder}", n, CONVS * test_batches)
         got, want = results["cuda"], results["torch"]
         gap = float(np.abs(got - want).max())
         uvd = got.reshape(-1, 21, 3)
@@ -1165,23 +1202,25 @@ class _Block:
             raise ImportError("blocked in the serving process: " + name)
 sys.meta_path.insert(0, _Block())
 import numpy as np, torch
-from pixelwiseregression_tpu_torch.ops import cuda_softargmax as cs
+from pixelwiseregression_tpu_torch.ops import cuda_conv as cc, cuda_softargmax as cs
 from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact
 path, reqs, out = sys.argv[1:4]
 t = time.perf_counter()
 art = ServingArtifact.load(path, "cuda:0")
 load_s = time.perf_counter() - t
 data = np.load(reqs)
-launches, uvd = [], {}
+launches, convs, uvd = [], [], {}
 for i in range(len(data.files) // 2):
-    before = cs.LAUNCHES
+    before = (cs.LAUNCHES, cc.LAUNCHES)
     uvd[str(i)] = art.predict(data[f"frame{i}"], data[f"com{i}"])["uvd"]
     torch.cuda.synchronize()
-    launches.append(cs.LAUNCHES - before)
+    launches.append(cs.LAUNCHES - before[0])
+    convs.append(cc.LAUNCHES - before[1])
 np.savez(out, **uvd)
 blocked = sorted(m for m in sys.modules if m.startswith(
     ("jax", "pixelwiseregression_tpu_torch.models", "pixelwiseregression_tpu_torch.serve.")))
-print(json.dumps({"load_s": load_s, "launches": launches, "imported_blocked": blocked}))
+print(json.dumps({"load_s": load_s, "launches": launches, "conv_launches": convs,
+                  "imported_blocked": blocked}))
 """
 
 
@@ -1208,6 +1247,7 @@ def phase_serving_chain(cs, device, smi_line):
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models import layers
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.serve import Predictor
     from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact, export_artifact
     from pixelwiseregression_tpu_torch.serve_http import Client, make_server
@@ -1220,7 +1260,10 @@ def phase_serving_chain(cs, device, smi_line):
     pred = Predictor.from_state_dict(state, "NYU", device, batch_size=SERVE_CHAIN_BATCH,
                                      stages=STAGES)
     assert pred.model.dtype == torch.float32 and pred.model.norm_method == "instance"
+    cuda_conv.LAUNCHES = 0
     live = [pred.predict(r["frame"], r["com"]) for r in requests]
+    torch.cuda.synchronize()
+    _count_convs("serve_f32", cuda_conv.LAUNCHES, CONVS * len(requests))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "nyu.pwrsrv")
@@ -1242,8 +1285,11 @@ def phase_serving_chain(cs, device, smi_line):
               f"{export_s:.1f} s ({header['format']}, batch {header['batch_size']}); a fresh "
               f"process without the model code loaded it in {report['load_s']:.1f} s "
               f"({time.perf_counter() - t:.1f} s with its start); K1 launches a request "
-              f"{report['launches']}; uvd vs the live Predictor {gap:.3e} px/mm", flush=True)
+              f"{report['launches']}, conv3x3_f32 {report['conv_launches']}; uvd vs the live "
+              f"Predictor {gap:.3e} px/mm", flush=True)
         assert report["launches"] == [STAGES] * len(requests), report
+        assert report["conv_launches"] == [CONVS] * len(requests), report
+        _count_convs("artifact", sum(report["conv_launches"]), CONVS * len(requests))
         assert not report["imported_blocked"], report
         assert gap <= ARTIFACT_GAP_BOUND, gap
         out["artifact"] = sum(report["launches"])
@@ -1252,15 +1298,19 @@ def phase_serving_chain(cs, device, smi_line):
         export_artifact(pred, poly, poly_batch=True)
         art = ServingArtifact.load(poly, device)
         cs.LAUNCHES = 0
+        poly_convs = 0
         for n in (1, 5):
             want = Predictor(pred.model, spec, pred.cfg, n, device).predict(
                 requests[0]["frame"][:n], requests[0]["com"][:n])["uvd"]
-            before = cs.LAUNCHES
+            before = (cs.LAUNCHES, cuda_conv.LAUNCHES)
             uvd = art.predict(requests[0]["frame"][:n], requests[0]["com"][:n])["uvd"]
+            poly_convs += cuda_conv.LAUNCHES - before[1]
             pgap = float(np.abs(uvd - want).max())
             print(f"serving chain: poly-batch artifact at request size {n}: K1 launches "
-                  f"{cs.LAUNCHES - before}, uvd vs a live Predictor of batch {n} {pgap:.3e}")
+                  f"{cs.LAUNCHES - before[0]}, conv3x3_f32 {cuda_conv.LAUNCHES - before[1]}, uvd "
+                  f"vs a live Predictor of batch {n} {pgap:.3e}")
             assert uvd.shape == (n, J, 3) and pgap <= ARTIFACT_GAP_BOUND, (n, pgap)
+        _count_convs("artifact_poly", poly_convs, 2 * CONVS)
         del art
 
         art = ServingArtifact.load(path, device)
@@ -1285,7 +1335,7 @@ def phase_serving_chain(cs, device, smi_line):
             chunks = [(frames[i * HTTP_FRAMES:(i + 1) * HTTP_FRAMES],
                        coms[i * HTTP_FRAMES:(i + 1) * HTTP_FRAMES]) for i in range(HTTP_CLIENTS)]
             direct = [art.predict(f, c)["uvd"] for f, c in chunks]
-            cs.LAUNCHES = 0
+            cs.LAUNCHES = cuda_conv.LAUNCHES = 0
             walls, replies = [], []
             for _ in range(HTTP_BURSTS):
                 got_burst = [None] * HTTP_CLIENTS
@@ -1302,7 +1352,7 @@ def phase_serving_chain(cs, device, smi_line):
                 walls.append(time.perf_counter() - t)
                 replies.append(got_burst)
             metrics = client.metrics()
-            http_launches = cs.LAUNCHES
+            http_launches, http_convs = cs.LAUNCHES, cuda_conv.LAUNCHES
         finally:
             srv.shutdown()
             srv.server_close()
@@ -1315,11 +1365,12 @@ def phase_serving_chain(cs, device, smi_line):
               f"{metrics['device_calls']}, batch_fill {metrics['batch_fill']:.1f}, latency p50 "
               f"{metrics['latency_ms']['p50']} ms p99 {metrics['latency_ms']['p99']} ms, "
               f"{fps:.1f} frames/s (bursts {[round(w, 3) for w in walls]} s); K1 launches "
-              f"{http_launches}; replies equal to the direct predict: {equal}; {smi_line}",
-              flush=True)
+              f"{http_launches}, conv3x3_f32 {http_convs}; replies equal to the direct "
+              f"predict: {equal}; {smi_line}", flush=True)
         assert metrics["requests"] == n_req and metrics["errors"] == 0, metrics
         assert metrics["device_calls"] < n_req, metrics
         assert http_launches == STAGES * metrics["device_calls"], http_launches
+        _count_convs("http", http_convs, CONVS * metrics["device_calls"])
         assert equal
         out["http"] = http_launches
         del art
@@ -1336,7 +1387,7 @@ def phase_serving_chain(cs, device, smi_line):
     pb = Predictor.from_state_dict(state_b, "NYU", device, **kw)
     convs = sum(1 for m in pq.model.modules() if isinstance(m, layers.Conv) and m.quant)
     calib = pq.calib_left
-    cs.LAUNCHES, layers.INT_MM_CALLS = 0, 0
+    cs.LAUNCHES, layers.INT_MM_CALLS, cuda_conv.LAUNCHES = 0, 0, 0
     outs = [pq.predict(r["frame"], r["com"]) for r in requests + requests[:1]]
     torch.cuda.synchronize()
     forwards = 2 * calib + len(requests) + 1 - calib
@@ -1348,6 +1399,7 @@ def phase_serving_chain(cs, device, smi_line):
     assert pq.calib_left == 0 and all(np.isfinite(o["uvd"]).all() for o in outs)
     assert all(float(v.max()) > 0 for v in scales.values())
     assert cs.LAUNCHES == STAGES * forwards and layers.INT_MM_CALLS == convs * forwards
+    _count_convs("int8_serve", cuda_conv.LAUNCHES, 0)
     out["int8_serve"], out["int_mm"] = cs.LAUNCHES, layers.INT_MM_CALLS
     fps = {"int8": [], "bf16": []}
     for rep in range(4):
@@ -1463,6 +1515,7 @@ def phase_fullreg(cs, device, smi_line, data, work):
     from pixelwiseregression_tpu_torch.cli.test_main import run_inference
     from pixelwiseregression_tpu_torch.cli.train_main import run_training
     from pixelwiseregression_tpu_torch.data.sources import get_source
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
     from pixelwiseregression_tpu_torch.serve import Predictor
     from pixelwiseregression_tpu_torch.serve_artifact import export_artifact
 
@@ -1477,7 +1530,7 @@ def phase_fullreg(cs, device, smi_line, data, work):
                                                                              LEVEL, H)
         out = io.StringIO()
         torch.cuda.synchronize()
-        cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = 0
+        cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = cuda_conv.LAUNCHES = 0
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
             best_epoch, best_err = run_training(args, "MSRA", fullregression=True, subject=0)
@@ -1492,6 +1545,7 @@ def phase_fullreg(cs, device, smi_line, data, work):
               f"best epoch {best_epoch} at {best_err:.3f} mm", flush=True)
         assert len(epochs) == FULLREG_EPOCHS and all(np.isfinite(e[0]) for e in epochs), epochs
         assert train == {"K1": 0, "K2": 0}, train
+        _count_convs("fullreg_train", cuda_conv.LAUNCHES, 0)
         final = os.path.join(work, "Model", "MSRA_full_regression_subject0_final.pt")
         ckpt = torch.load(final, map_location="cpu", weights_only=True)
         assert "stages.1.regression.4.weight" in ckpt["state_dict"]
@@ -1499,11 +1553,12 @@ def phase_fullreg(cs, device, smi_line, data, work):
 
         targs = make_test_parser(msra=True, fullregression=True).parse_args(
             ["--subject", "0", "--batch_size", str(FULLREG_BATCH), "--data_path", data])
-        cs.LAUNCHES = 0
+        cs.LAUNCHES = cuda_conv.LAUNCHES = 0
         with contextlib.redirect_stdout(io.StringIO()) as text:
             name, test_fps = run_inference(targs, "MSRA", fullregression=True, subject=0)
         torch.cuda.synchronize()
         test_launches = cs.LAUNCHES
+        _count_convs("fullreg_test", cuda_conv.LAUNCHES, 0)
         result = np.loadtxt(os.path.join(work, name))
         print(f"fullreg test f32: {test_fps:.1f} frames/s, K1 launches {test_launches}; "
               f"{text.getvalue().strip().splitlines()[-1]}")
@@ -1954,6 +2009,110 @@ def phase_scripts(cs, device, smi_line, data, work):
         os.chdir(prev)
     print(f"scripts: K1 and K2 launches by tool {launches}", flush=True)
     return launches
+
+
+def phase_conv3x3(device, smi_line):
+    """The heads' f32 3x3 conv (``csrc/conv3x3_f32.cu`` through
+    ``torch.ops.pwr.conv3x3_f32``) at [b, 128, 64, 64] 128 -> 128 for b in
+    CONV_BATCHES: its kernel's device time a launch (torch.profiler's total
+    over its launches, which holds where the profiler drops records of a
+    long process) beside the float32 bound; each call's time by CUDA events,
+    in turns with cuDNN's f32 conv with TF32 off as its heuristic picks it
+    (the port's F.conv2d before the kernel) and in benchmark mode (its
+    fastest f32 algorithm after its own search), whose kernels are listed;
+    each one's largest error to a float64 conv of the same inputs; the
+    host's µs a call of the operator and of cuDNN's heuristic pick, without
+    and with autograd (_host_us). Asserted: two kernel calls bit-identical,
+    one launch a call, the kernel's error no larger than cuDNN's heuristic
+    pick's. The benchmark mode is set here only, around its own calls.
+    Returns rows by batch."""
+    import torch.nn.functional as F
+
+    from pixelwiseregression_tpu_torch.ops import cuda_conv
+
+    def flags(benchmark):
+        return torch.backends.cudnn.flags(enabled=True, benchmark=benchmark, deterministic=False,
+                                          allow_tf32=False)
+
+    rows = {}
+    for b in CONV_BATCHES:
+        gen = torch.Generator(device=device).manual_seed(SEED + 70 + b)
+        x = torch.randn(b, FEATURES, H, W, generator=gen, device=device)
+        w = torch.randn(FEATURES, FEATURES, 3, 3, generator=gen, device=device) * (
+            2.0 / (9 * FEATURES + 9 * FEATURES)) ** 0.5
+        bias = 0.1 * torch.randn(FEATURES, generator=gen, device=device)
+        ref = F.conv2d(x.double(), w.double(), bias.double(), 1, 1)
+
+        def kernel():
+            return cuda_conv.conv3x3_f32(x, w, bias)
+
+        def cudnn(benchmark=False):
+            with flags(benchmark):
+                return F.conv2d(x, w, bias, 1, 1)
+
+        before = cuda_conv.LAUNCHES
+        y, y2 = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert cuda_conv.LAUNCHES == before + 2, cuda_conv.LAUNCHES - before
+        assert torch.equal(y, y2), "two calls of conv3x3_f32 differ"
+        errs = {"kernel": (y.double() - ref).abs().max().item(),
+                "cudnn": (cudnn().double() - ref).abs().max().item(),
+                "cudnn_benchmark": (cudnn(True).double() - ref).abs().max().item()}
+        del y, y2
+        scale = ref.abs().max().item()
+        fns = {"kernel": kernel, "cudnn": cudnn, "cudnn_benchmark": lambda: cudnn(True)}
+        by = {name: _device_time_by_kernel(fn) for name, fn in fns.items()}
+        conv_ms = next(us / n for k, n, us in by["kernel"] if "conv3x3_f32" in k) / 1e3
+        ms = dict(zip(fns, (m for m, _ in _interleaved_ms(list(fns.values()), runs=5, iters=10))))
+        wg = w.detach().requires_grad_()
+        with torch.no_grad():
+            host_us = {"kernel": _host_us(kernel), "cudnn": _host_us(cudnn)}
+        host_us["kernel_autograd"] = _host_us(lambda: cuda_conv.conv3x3_f32(x, wg, bias))
+        with flags(False):
+            host_us["cudnn_autograd"] = _host_us(lambda: F.conv2d(x, wg, bias, 1, 1))
+        bound_ms, bound_by = _bound(2 * b * H * W * FEATURES * FEATURES * 9,
+                                    4 * (2 * b * H * W * FEATURES + FEATURES * FEATURES * 9),
+                                    "f32")
+        row = {"shape": [b, FEATURES, H, W], "device_ms": conv_ms, "call_ms": ms["kernel"],
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / conv_ms,
+               "cudnn_ms": ms["cudnn"], "cudnn_benchmark_ms": ms["cudnn_benchmark"],
+               "max_abs_err": errs["kernel"], "cudnn_max_abs_err": errs["cudnn"],
+               "cudnn_benchmark_max_abs_err": errs["cudnn_benchmark"], "ref_scale": scale,
+               "host_us": host_us,
+               "cudnn_kernels": [k[:90] for k, _, _ in by["cudnn"]],
+               "cudnn_benchmark_kernels": [k[:90] for k, _, _ in by["cudnn_benchmark"]]}
+        print(f"conv3x3_f32 [{b}, {FEATURES}, {H}, {W}] {FEATURES}->{FEATURES}: kernel "
+              f"{conv_ms:.5f} ms device, bound {bound_ms:.5f} ({bound_by}; "
+              f"{100 * bound_ms / conv_ms:.1f}% of it); a call by CUDA events, in turns: the "
+              f"kernel {ms['kernel']:.5f} ms (the weight's layout included), cuDNN f32 heuristic "
+              f"{ms['cudnn']:.5f}, benchmark mode {ms['cudnn_benchmark']:.5f}; max |err| to float64 (scale {scale:.3f}): kernel {errs['kernel']:.3e}, "
+              f"cuDNN {errs['cudnn']:.3e}, benchmark {errs['cudnn_benchmark']:.3e}; host us a "
+              f"call: " + ", ".join(f"{k} {v:.2f}" for k, v in host_us.items()) + f"; {smi_line}",
+              flush=True)
+        for name in fns:
+            print(f"  {name} kernels (ms a launch): " + "; ".join(
+                f"{k[:80]} {us / n / 1e3:.5f}" for k, n, us in by[name]), flush=True)
+        assert errs["kernel"] <= errs["cudnn"], errs
+        rows[b] = row
+        del x, ref
+        _free()
+    return rows
+
+
+def _host_us(fn, calls=10, runs=7):
+    """Median host µs a call of ``fn`` over ``runs`` runs of ``calls`` calls
+    issued back to back, the card idle at each run's start: the time to
+    issue, which the card's queue hides from the device."""
+    fn()
+    us = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us.append((time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(us)
 
 
 def phase_profile(device, steps=3):
@@ -2951,8 +3110,9 @@ def _check_no_spill(log, kernel):
 
 def main() -> int:
     args = sys.argv[1:]
-    if not (args in ([], ["--profile"]) or (args[:1] == ["--decoder"] and len(args) <= 2)):
-        print("usage: chip_smoke.py [--profile | --decoder [DIR]]", file=sys.stderr)
+    if not (args in ([], ["--profile"], ["--conv"])
+            or (args[:1] == ["--decoder"] and len(args) <= 2)):
+        print("usage: chip_smoke.py [--profile | --conv | --decoder [DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -2973,12 +3133,17 @@ def main() -> int:
     lib, log = cuda_lib.build()
     print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in log.splitlines():
-        if any(k in line for k in ("registers", "spill", "wgmma", "xm_dots", "tail", "norm_kernel",
-                                   "nr_kernel", "softargmax", "dlabel")) or line.endswith(":"):
+        if (any(k in line for k in ("registers", "spill", "wgmma", "xm_dots", "tail", "norm_kernel",
+                                    "nr_kernel", "softargmax", "dlabel", "conv3x3"))
+                or line.endswith(":")):
             print("ptxas:", line.strip())
     for kernel in ("conv_wgmma_kernel", "xm_dots_kernel", "tail_kernel", "norm_kernel", "nr_kernel",
-                   "softargmax_fwd_kernel", "softargmax_bwd_kernel", "dlabel_kernel"):
+                   "softargmax_fwd_kernel", "softargmax_bwd_kernel", "dlabel_kernel",
+                   "conv3x3_f32_kernel"):
         _check_no_spill(log, kernel)
+    if args == ["--conv"]:
+        phase_conv3x3(device, smi_line)
+        return 0
     if args[:1] == ["--decoder"]:
         decoder_ab(args[1] if len(args) == 2 else None)
         return 0
@@ -3025,6 +3190,7 @@ def main() -> int:
     normrelu = phase_normrelu(device)
     pieces = phase_ablate(device)
     norm_shapes = phase_norm_shapes(device)
+    conv = phase_conv3x3(device, smi_line)
     tool_launches = phase_tools()
     bench_launches = phase_bench()
 
@@ -3169,6 +3335,19 @@ def main() -> int:
                    "the sums over distributed shared memory in rank order, dx from shared "
                    "memory; then the per-channel sums over the samples"},
         *k6_rows,
+        {"name": "conv3x3_f32", "route": "cuda", "source": source.format("conv3x3_f32"),
+         "replaces": None, "launches": CONV_LAUNCHES["train_f32"],
+         "launches_by_path": {**CONV_LAUNCHES, "tools": tool_launches["conv3x3"]},
+         "max_abs_err": conv[TRAIN_BATCH]["max_abs_err"], "ms": conv[TRAIN_BATCH]["device_ms"],
+         "plain_ms": None, "library_ms": conv[TRAIN_BATCH]["cudnn_ms"], "by_batch": conv,
+         "shape": conv[TRAIN_BATCH]["shape"], "dtype": "f32",
+         "unit": "ms is the kernel's device time a launch (torch.profiler); library_ms a call of "
+                 "cuDNN's f32 conv (TF32 off) as its heuristic picks it, by CUDA events in turns "
+                 "with the kernel's call_ms; plain_ms: the plain version is cuDNN's",
+         "design": "FFMA implicit GEMM on NCHW: 256 threads a block own 2 rows x 64 pixels x "
+                   "128 channels, an 8x8 register tile a thread; chunks of 8 input channels "
+                   "(slab with halo, weights [72][128]) by bulk copies on mbarriers, two stages; "
+                   "nine taps from shared memory a load"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@ statistics in f32 and casts y back.
 
 ``Conv(quant="int8" | "int8_static")`` is the int8 inference conv (the JAX
 package's ``_Int8Conv2D``): int8 codes, an int32 product, an f32 epilogue.
+An f32 3x3 conv of the shape ``ops/cuda_conv`` takes runs through its
+operator (the hand-written kernel on the card, ``F.conv2d`` on the CPU).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixelwiseregression_tpu_torch.ops import cuda_conv
 from pixelwiseregression_tpu_torch.parallel import mesh
 
 
@@ -123,6 +126,11 @@ class Conv(nn.Conv2d):
     forward inside ``calibrating(model)`` first raises ``act_absmax_c`` to
     the running ``|x|max`` of each input channel; a static conv that was
     never calibrated (nor given scales by ``load_quant_scales``) raises.
+
+    Unquantized, a conv that ``cuda_conv.fits`` (3x3, stride 1, channels
+    multiples of 128: the pixelwise heads') takes ``cuda_conv.conv3x3_f32``
+    for an input that ``cuda_conv.takes`` (f32, contiguous, 64 wide);
+    every other conv and input keeps ``F.conv2d``.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
@@ -134,6 +142,8 @@ class Conv(nn.Conv2d):
         self.quant = quant
         self.calibrating = False
         self.calibrated = False
+        self.hand_f32 = quant is None and cuda_conv.fits(
+            in_channels, out_channels, self.kernel_size, self.stride, self.padding)
         if quant == "int8_static":
             self.register_buffer("act_absmax_c", torch.zeros(in_channels), persistent=False)
 
@@ -145,6 +155,8 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         if self.quant is None:
+            if self.hand_f32 and cuda_conv.takes(x):
+                return cuda_conv.conv3x3_f32(x, self.weight, self.bias)
             return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                             self.stride, self.padding)
         scales = None

@@ -11,9 +11,10 @@ this module's host geometry alone: it imports neither the model code
 The payload is a ``torch.export`` ExportedProgram, the counterpart of the
 JAX package's ``jax.export`` StableHLO: a serialized graph of ATen
 operators that torch runs. The decoder appears in it as the registered
-operator ``torch.ops.pwr.softargmax_fwd`` (``ops/cuda_softargmax.py``), which
-dispatches by the device of its inputs when the program runs: K1 on the
-card, its plain version on the CPU. ``load(path, device)`` moves the
+operator ``torch.ops.pwr.softargmax_fwd`` (``ops/cuda_softargmax.py``), and an
+f32 model's head convs as ``torch.ops.pwr.conv3x3_f32`` (``ops/cuda_conv.py``);
+each dispatches by the device of its inputs when the program runs: the
+kernel on the card, its plain version on the CPU. ``load(path, device)`` moves the
 program to ``device`` (``torch.export.passes.move_to_device_pass``), so one
 artifact serves on the card and on the CPU. A program is not compiled: the
 non-kernel operators run as PyTorch's own kernels, as in the live
@@ -155,8 +156,9 @@ class ServingArtifact:
         ``serve.Predictor`` does: an f32 program runs in f32 on the card
         (cuDNN's TF32 default would part from the live predictor by pixels
         on a deep f32 model)."""
-        # registers torch.ops.pwr.softargmax_fwd, which the program calls
-        from pixelwiseregression_tpu_torch.ops import cuda_softargmax  # noqa: F401
+        # registers torch.ops.pwr.softargmax_fwd and pwr.conv3x3_f32, which
+        # the program calls
+        from pixelwiseregression_tpu_torch.ops import cuda_conv, cuda_softargmax  # noqa: F401
 
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -38,6 +38,7 @@ import torch
 
 from pixelwiseregression_tpu_torch.ops import (
     ablate_pieces,
+    cuda_conv,
     cuda_fused,
     cuda_normrelu,
     cuda_softargmax,
@@ -61,6 +62,7 @@ COUNTERS = {
     "build_xm": (ablate_pieces, "BUILD_LAUNCHES"),
     "xm_dots": (ablate_pieces, "DOTS_LAUNCHES"),
     "norm_stats_apply": (ablate_pieces, "STATS_LAUNCHES"),
+    "conv3x3": (cuda_conv, "LAUNCHES"),
 }
 
 

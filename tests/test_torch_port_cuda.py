@@ -8,7 +8,9 @@ conv's product on the card vs the CPU, a train step through K1 and K2 (on raw an
 cv2's fixed-point warp card vs CPU, both inference engines through K3, K4 and K1, and the CLIs: Loader batches
 through pinned memory, run_training through K1 and K2 and run_inference
 through K1; the localisation of requests from a detector's boxes card vs
-CPU, and such a request queued with no sync up to its gather.
+CPU, and such a request queued with no sync up to its gather; the heads'
+f32 3x3 conv (``torch.ops.pwr.conv3x3_f32``) against a float64 conv and
+cuDNN, its gradients against F.conv2d's, and its launches a forward.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -35,6 +37,7 @@ from pixelwiseregression_tpu_torch.data.sources import SPECS, get_source
 from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
 from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
 from pixelwiseregression_tpu_torch.ops import ablate_pieces as tap
+from pixelwiseregression_tpu_torch.ops import cuda_conv as tconv
 from pixelwiseregression_tpu_torch.ops import cuda_fused as tfused
 from pixelwiseregression_tpu_torch.ops import cuda_hourglass as thg
 from pixelwiseregression_tpu_torch.ops import cuda_normrelu as tcn
@@ -1426,3 +1429,135 @@ def test_a_box_request_queues_without_a_sync_up_to_the_gather(device, monkeypatc
     assert loc.LOCALIZED - before == 32 and tcuda.LAUNCHES - k1 == 2
     np.testing.assert_array_equal(got["com"], want["com"])
     np.testing.assert_allclose(got["uvd"], want["uvd"], rtol=0, atol=1e-3)
+
+
+# --------------------------------------------------------------------------- #
+# the heads' f32 3x3 conv (csrc/conv3x3_f32.cu)
+# --------------------------------------------------------------------------- #
+
+
+def _conv_inputs(device, b, seed):
+    """x [b, 128, 64, 64] normal, a xavier-normal weight (the model's
+    init) and a bias of 0.1 * normal, from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, 128, 64, 64, generator=g, device=device)
+    w = torch.randn(128, 128, 3, 3, generator=g, device=device) * (2.0 / (2 * 9 * 128)) ** 0.5
+    return x, w, 0.1 * torch.randn(128, generator=g, device=device)
+
+
+def _cudnn_f32(benchmark=False, deterministic=False):
+    return torch.backends.cudnn.flags(enabled=True, benchmark=benchmark,
+                                      deterministic=deterministic, allow_tf32=False)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b", [128, 32])
+def test_conv3x3_is_no_further_from_float64_than_cudnn(device, b, seed):
+    """At the heads' shape, [b, 128, 64, 64] 128 -> 128, the kernel's
+    largest error to a float64 conv of the same inputs is no larger than
+    F.conv2d's in f32 with TF32 off (cuDNN's own pick, the port's conv
+    before the kernel): the same f32 work, not less precision. One launch a
+    call."""
+    x, w, bias = _conv_inputs(device, b, seed)
+    want = torch.nn.functional.conv2d(x.double(), w.double(), bias.double(), 1, 1)
+    before = tconv.LAUNCHES
+    got = tconv.conv3x3_f32(x, w, bias)
+    torch.cuda.synchronize()
+    assert tconv.LAUNCHES == before + 1
+    with _cudnn_f32():
+        lib = torch.nn.functional.conv2d(x, w, bias, 1, 1)
+    err = float((got.double() - want).abs().max())
+    assert err <= float((lib.double() - want).abs().max()), err
+
+
+def test_conv3x3_calls_are_bit_identical(device):
+    """Two calls on the same inputs give the same bits (one fixed order of
+    sums, no atomics)."""
+    x, w, bias = _conv_inputs(device, 32, 3)
+    assert torch.equal(tconv.conv3x3_f32(x, w, bias), tconv.conv3x3_f32(x, w, bias))
+
+
+def test_conv3x3_gradients_are_f_conv2d_autograd_bit_for_bit(device):
+    """dx, dw and db through the operator equal F.conv2d's autograd bit for
+    bit, given the same grad_out: its backward is ATen's
+    convolution_backward with autograd's arguments. cuDNN in deterministic
+    mode on both sides, so that its weight gradient, whose default
+    algorithm sums with atomics, is one value."""
+    x, w, bias = _conv_inputs(device, 8, 4)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    g = torch.randn(8, 128, 64, 64, generator=torch.Generator(device=device).manual_seed(5),
+                    device=device)
+    with _cudnn_f32(deterministic=True):
+        got = torch.autograd.grad(tconv.conv3x3_f32(*leaves), leaves, g)
+        want = torch.autograd.grad(torch.nn.functional.conv2d(*leaves, 1, 1), leaves, g)
+    for name, a, b in zip(("dx", "dw", "db"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_conv3x3_wrapper_rejects_what_the_kernel_does_not_take(device):
+    """Shapes and dtypes outside the kernel raise on the card; a mixed-device
+    call raises."""
+    x, w, bias = _conv_inputs(device, 2, 6)
+    with pytest.raises(ValueError, match="multiples"):
+        tconv.conv3x3_f32(x[:, :, :, :32].contiguous(), w, bias)
+    with pytest.raises(ValueError, match="multiples"):
+        tconv.conv3x3_f32(x[:, :64].contiguous(), w[:, :64].contiguous(), bias)
+    with pytest.raises(TypeError, match="f32"):
+        tconv.conv3x3_f32(x.double(), w.double(), bias.double())
+    with pytest.raises(ValueError, match="one device"):
+        tconv.conv3x3_f32(x, w.cpu(), bias)
+
+
+def _full_width_step(device, cls, seed):
+    """One f32 train step of a full-width NYU model (two stages, 128
+    features, 128/64 crops) at batch 2 on a raw batch; the conv's launches."""
+    from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
+    from pixelwiseregression_tpu_torch.train.loop import make_train_step_fullreg
+
+    spec = SPECS["NYU"]
+    torch.manual_seed(seed)
+    if cls == "pixelwise":
+        model = PixelwiseRegression(14, stage=2, features=128, level=4,
+                                    norm_method="instance_anchored", decoder="cuda")
+    else:
+        model = FullRegression(14, stage=2, label_size=64, features=128,
+                               norm_method="instance_anchored")
+    state = create_train_state(model.to(device), lr=1e-3, steps_per_epoch=568)
+    cfg = PreprocessConfig(fx=spec.camera.fx, fy=spec.camera.fy, halfu=spec.camera.halfu,
+                           halfv=spec.camera.halfv, image_size=128, label_size=64,
+                           using_rotation=True, using_scale=True, using_shift=True)
+    step = (make_train_step(cfg, LossConfig(lambda_h=1.0, lambda_d=0.01, alpha=1.0))
+            if cls == "pixelwise" else make_train_step_fullreg(cfg))
+    raw = make_synthetic_raw_batch(2, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=150.0, com_z=450.0, seed=seed)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    before = tconv.LAUNCHES
+    out = step(state, batch, draws=draw_augmentation(
+        2, torch.Generator(device=device).manual_seed(seed), device))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["loss"])
+    return tconv.LAUNCHES - before
+
+
+@pytest.mark.parametrize("cls, launches", [("pixelwise", 12), ("fullreg", 0)])
+def test_full_width_f32_train_step_launches_the_conv_for_the_heads(device, cls, launches):
+    """A full-width f32 train step launches the conv 12 times, once for
+    each of the three 128 -> 128 convs of each head of each stage (the
+    backward runs cuDNN's); FullRegression, whose convs are stride 2, 1x1
+    or 64 wide in channels, none."""
+    assert _full_width_step(device, cls, 11) == launches
+
+
+def test_full_width_f32_request_launches_the_conv_for_the_heads(device):
+    """One request of 32 frames to the full-width f32 NYU Predictor
+    launches the conv 12 times."""
+    spec = SPECS["NYU"]
+    torch.manual_seed(12)
+    state = PixelwiseRegression(14, stage=2, features=128, level=4).state_dict()
+    pred = Predictor.from_state_dict(state, "NYU", device, batch_size=32)
+    raw = make_synthetic_raw_batch(32, 480, 640, 14, fx=spec.camera.fx, fy=spec.camera.fy,
+                                   cube=150.0, com_z=450.0, seed=13)
+    before = tconv.LAUNCHES
+    got = pred.predict(raw["frame"], raw["com"])
+    assert tconv.LAUNCHES == before + 12
+    assert np.isfinite(got["uvd"]).all()
