@@ -96,12 +96,14 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 16. the port bench (pixelwiseregression_tpu_torch/bench.py) in this
    process at its defaults (stage 1, batch 256, bf16, 16 calls a sample):
    the model's forward, the unit engine and the fused engine, then stage 2
-   with the train line (batch 128), then stage 1 with the int8 serving line
-   (--serving: batch norm, bf16, int8_static_all, in turns with the
-   headline); every line printed, none an error, the launches of each
-   line's counted call (17 K3, 1 K4 and its tail, K1 a stage, K1 and K2 a
-   stage a train step, K1 and 42 torch._int_mm for the serving line) and of
-   each whole run asserted.
+   with the train line (batch 128), stage 2 in f32, then stage 1 with the
+   int8 serving line (--serving: batch norm, bf16, int8_static_all, in
+   turns with the headline); every line printed, none an error, the
+   launches of each line's counted call over every counter of
+   tools/ab_common.COUNTERS (17 K3, 1 K4 with its 29 kernels and its tail,
+   K1 a stage, 12 conv3x3_f32 in the f32 forward, K1 and K2 a stage a
+   train step, K1 and 42 torch._int_mm for the serving line) and of each
+   whole run asserted.
 
 After the CLI path (8.) comes the serving chain (phase_serving_chain): the
 full-width NYU Predictor at its defaults (instance norm, f32, K1; batch
@@ -266,33 +268,22 @@ ENGINE_GAP_BOUND = 2e-2
 # and ~5e-2 (fused, whose K4 applies its norms in bf16) at stage 1, and
 # 0.05-0.3 at stage 2
 MODEL_GAP_BOUND = 5e-2
-def _median_ms(fn, runs=7, iters=20):
-    """Median over ``runs`` of the mean time of ``iters`` back-to-back calls, by CUDA events."""
-    return _interleaved_ms([fn], runs, iters)[0][0]
 
 
-def _interleaved_ms(fns, runs=7, iters=20):
-    """For each of ``fns``, ``runs`` samples of the mean time of ``iters``
-    back-to-back calls by CUDA events, the functions taking turns within
-    each run; returns each one's (median, spread = (max - min) / median)."""
-    for fn in fns:
-        for _ in range(3):
-            fn()
-    times = [[] for _ in fns]
-    for _ in range(runs):
-        for fn, ts in zip(fns, times):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            ts.append(start.elapsed_time(end) / iters)
+def _turns(fns, runs=7, iters=20):
+    """Each of ``fns`` timed in turns by ``tools/ab_common``'s sampler and
+    estimator: ``runs`` samples of ``iters`` back-to-back calls between CUDA
+    events, after a warm call. Returns each one's (median ms a call, spread
+    = (max - min) / median); raises if a sampler failed."""
+    from pixelwiseregression_tpu_torch.tools import ab_common
+
+    device = torch.device("cuda")
     out = []
-    for ts in times:
-        med = statistics.median(ts)
-        out.append((med, (max(ts) - min(ts)) / med))
+    for med, quality in ab_common.interleaved_estimate(
+            [ab_common.make_sampler(fn, device, iters) for fn in fns], runs):
+        if med is None:
+            raise RuntimeError(f"timing failed: {quality['error']}")
+        out.append((med * 1e3, quality["spread_pct"] / 100))
     return out
 
 
@@ -361,7 +352,7 @@ def phase_kernel(cs, plain, device):
         line = (f"kernel softargmax_fwd [{b},{joints},{hw}] {form} plan {plan}: "
                 f"max_abs_err={err:.3e}")
         if timed:
-            ms, plain_ms = _median_ms(kernel), _median_ms(reference)
+            ms, plain_ms = _turns([kernel])[0][0], _turns([reference])[0][0]
             line += f" call_ms={ms:.5f} plain_ms={plain_ms:.5f}"
             cases[(b, _DT[dtype], joints)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         print(line)
@@ -617,9 +608,9 @@ def phase_backward(cs, plain, device):
                     return torch.autograd.grad((hm, uvd), lv, (g_hm, g_uvd))
                 return run
 
-            ms, plain_ms = _median_ms(k_bwd), _median_ms(p_bwd)
-            fb_ms, fb_plain_ms = (_median_ms(fwd_bwd(cs.decode_flat)),
-                                  _median_ms(fwd_bwd(plain)))
+            ms, plain_ms = _turns([k_bwd])[0][0], _turns([p_bwd])[0][0]
+            fb_ms, fb_plain_ms = (_turns([fwd_bwd(cs.decode_flat)])[0][0],
+                                  _turns([fwd_bwd(plain)])[0][0])
             line += (f" bwd call_ms={ms:.5f} plain_ms={plain_ms:.5f}; fwd+bwd call_ms={fb_ms:.5f} "
                      f"plain_ms={fb_plain_ms:.5f}")
             cases[b] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
@@ -652,7 +643,7 @@ def phase_decoder_device(device):
     out = {}
 
     def row(fn, bound):
-        dev_ms, call_ms = _graph_us(fn) / 1e3, _median_ms(fn)
+        dev_ms, call_ms = _graph_us(fn) / 1e3, _turns([fn])[0][0]
         return {"device_ms": dev_ms, "call_ms": call_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "bound_share": bound[0] / dev_ms}
 
@@ -1433,9 +1424,9 @@ def phase_serving_chain(cs, device, smi_line):
     xb = torch.randn(SERVE_CHAIN_BATCH, FEATURES, H, W, device=device).to(torch.bfloat16)
     wd, bd = w.to(device), b.to(device)
     scale = xb.float().abs().amax(dim=(0, 2, 3))
-    times = _interleaved_ms([lambda: layers.int8_conv2d(xb, wd, bd, 1, scale),
-                             lambda: torch.nn.functional.conv2d(xb, wd.to(xb.dtype),
-                                                                bd.to(xb.dtype), padding=1)])
+    times = _turns([lambda: layers.int8_conv2d(xb, wd, bd, 1, scale),
+                    lambda: torch.nn.functional.conv2d(xb, wd.to(xb.dtype), bd.to(xb.dtype),
+                                                       padding=1)])
     print(f"serving chain: head conv [{SERVE_CHAIN_BATCH},{FEATURES},{H},{W}] 3x3 bf16 in: "
           f"int8 (im2col + torch._int_mm) {times[0][0]:.4f} ms, cuDNN bf16 "
           f"{times[1][0]:.4f} ms (medians, in turns); {smi_line}")
@@ -1826,22 +1817,15 @@ SCRIPT_TOOLS = (
     ("bench_upsample_add", ["--batch", "64", "--iters", "8", *SCRIPT_TIMED]),
 )
 # the K1 and K2 launches each tool's run must make (a profile tool's every
-# call: warm-up, timed and traced; a timed tool's are checked by ab_common.run)
+# call: warm-up, timed and traced; a timed tool's are checked by ab_common.run);
+# a train step's K2 is one kernel a call (no dlabel)
 SCRIPT_LAUNCHES = {
-    "profile_train_components": {"K1": STAGES * (2 + SCRIPT_STEPS),
-                                 "K2": STAGES * (2 + SCRIPT_STEPS)},
+    "profile_train_components": dict.fromkeys(("K1", "K2", "K2_kernels"),
+                                              STAGES * (2 + SCRIPT_STEPS)),
     "profile_components": {"K1": STAGES * 3},
-    "profile_train": {"K1": STAGES * 7, "K2": STAGES * 7},
+    "profile_train": dict.fromkeys(("K1", "K2", "K2_kernels"), STAGES * 7),
     "profile_infer": {"K1": STAGES * 7},
 }
-
-
-def _scripts_counts():
-    from pixelwiseregression_tpu_torch.tools import ab_common
-
-    for mod, attr in ab_common.COUNTERS.values():
-        setattr(mod, attr, 0)
-    return ab_common
 
 
 def phase_scripts(cs, device, smi_line, data, work):
@@ -1866,7 +1850,7 @@ def phase_scripts(cs, device, smi_line, data, work):
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.serve import Predictor
     from pixelwiseregression_tpu_torch.serve_http import make_server
-    from pixelwiseregression_tpu_torch.tools import (bench_http, check_data_layout,
+    from pixelwiseregression_tpu_torch.tools import (ab_common, bench_http, check_data_layout,
                                                      profile_train_components,
                                                      stage2_amplification)
     from pixelwiseregression_tpu_torch.train.checkpoint import save_checkpoint
@@ -1876,7 +1860,7 @@ def phase_scripts(cs, device, smi_line, data, work):
     def counted(name, want, fn):
         """Run fn with every counter at 0; its launches must be ``want``
         (a dict, or a function of fn's result giving one)."""
-        ab_common = _scripts_counts()
+        ab_common.reset_counts()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1940,7 +1924,8 @@ def phase_scripts(cs, device, smi_line, data, work):
 
     # stage 2's amplification on trained weights, on the MSRA fixture
     amp = counted("stage2_amplification",
-                  {"K1": STAGES * (SCRIPT_AMP_STEPS + 5), "K2": STAGES * SCRIPT_AMP_STEPS},
+                  {"K1": STAGES * (SCRIPT_AMP_STEPS + 5), "K2": STAGES * SCRIPT_AMP_STEPS,
+                   "K2_kernels": STAGES * SCRIPT_AMP_STEPS},
                   lambda: stage2_amplification.main(
                       ["--seeds", "1", "--steps", str(SCRIPT_AMP_STEPS), "--dataset", "MSRA",
                        "--data_path", data]))
@@ -1967,7 +1952,7 @@ def phase_scripts(cs, device, smi_line, data, work):
     server.start()
     try:
         url = f"http://127.0.0.1:{srv.server_address[1]}"
-        ab_common = _scripts_counts()
+        ab_common.reset_counts()
         res = bench_http.run(url, threads=4, requests=4, size=2)
         k1 = ab_common.read_counts()["K1"]
     finally:
@@ -2024,15 +2009,14 @@ def phase_conv3x3(device, smi_line):
     host's µs a call of the operator and of cuDNN's heuristic pick, without
     and with autograd (_host_us). Asserted: two kernel calls bit-identical,
     one launch a call, the kernel's error no larger than cuDNN's heuristic
-    pick's. The benchmark mode is set here only, around its own calls.
-    Returns rows by batch."""
+    pick's. TF32 is off (``core.precision.tf32_off``); cuDNN's benchmark
+    mode is set here only, around its own calls. Returns rows by batch."""
     import torch.nn.functional as F
 
+    from pixelwiseregression_tpu_torch.core.precision import tf32_off
     from pixelwiseregression_tpu_torch.ops import cuda_conv
 
-    def flags(benchmark):
-        return torch.backends.cudnn.flags(enabled=True, benchmark=benchmark, deterministic=False,
-                                          allow_tf32=False)
+    tf32_off()
 
     rows = {}
     for b in CONV_BATCHES:
@@ -2047,8 +2031,11 @@ def phase_conv3x3(device, smi_line):
             return cuda_conv.conv3x3_f32(x, w, bias)
 
         def cudnn(benchmark=False):
-            with flags(benchmark):
+            torch.backends.cudnn.benchmark = benchmark
+            try:
                 return F.conv2d(x, w, bias, 1, 1)
+            finally:
+                torch.backends.cudnn.benchmark = False
 
         before = cuda_conv.LAUNCHES
         y, y2 = kernel(), kernel()
@@ -2063,13 +2050,12 @@ def phase_conv3x3(device, smi_line):
         fns = {"kernel": kernel, "cudnn": cudnn, "cudnn_benchmark": lambda: cudnn(True)}
         by = {name: _device_time_by_kernel(fn) for name, fn in fns.items()}
         conv_ms = next(us / n for k, n, us in by["kernel"] if "conv3x3_f32" in k) / 1e3
-        ms = dict(zip(fns, (m for m, _ in _interleaved_ms(list(fns.values()), runs=5, iters=10))))
+        ms = dict(zip(fns, (m for m, _ in _turns(list(fns.values()), runs=5, iters=10))))
         wg = w.detach().requires_grad_()
         with torch.no_grad():
             host_us = {"kernel": _host_us(kernel), "cudnn": _host_us(cudnn)}
         host_us["kernel_autograd"] = _host_us(lambda: cuda_conv.conv3x3_f32(x, wg, bias))
-        with flags(False):
-            host_us["cudnn_autograd"] = _host_us(lambda: F.conv2d(x, wg, bias, 1, 1))
+        host_us["cudnn_autograd"] = _host_us(lambda: F.conv2d(x, wg, bias, 1, 1))
         bound_ms, bound_by = _bound(2 * b * H * W * FEATURES * FEATURES * 9,
                                     4 * (2 * b * H * W * FEATURES + FEATURES * FEATURES * 9),
                                     "f32")
@@ -2250,8 +2236,8 @@ def phase_fused_units(device):
         norms, others = _kernels_per_call(kernel)
         launched = norms + others
         assert (norms, others) == (pro + epi, 1), f"{name}: {norms} norm kernels, {others} others"
-        ms, lib_ms = _median_ms(kernel), _median_ms(library)
-        plain_ms = _median_ms(plain, runs=3, iters=5)
+        ms, lib_ms = _turns([kernel])[0][0], _turns([library])[0][0]
+        plain_ms = _turns([plain], runs=3, iters=5)[0][0]
         es = x.element_size()
         bound, by = _bound(2 * UNIT_BATCH * hw * hw * k * k * c * co,
                            es * (UNIT_BATCH * hw * hw * (c + co + (co if with_skip else 0))
@@ -2322,7 +2308,8 @@ def _hourglass_case(device, side, level):
     gap, own = rel_l2(got, want), rel_l2(want, want32)
     assert gap <= own, f"{tag} bf16: relative L2 gap {gap:.3e} above bf16's own {own:.3e}"
     del got32, want32
-    ms, plain_ms = _median_ms(kernel, runs=5, iters=10), _median_ms(plain, runs=3, iters=2)
+    ms = _turns([kernel], runs=5, iters=10)[0][0]
+    plain_ms = _turns([plain], runs=3, iters=2)[0][0]
     c, ch2 = FEATURES, FEATURES // 2
     per_pixel = 2 * c * ch2 + 2 * 9 * ch2 * ch2 + 2 * ch2 * c
     weights = ch.num_resblocks(level) * (c * ch2 + 9 * ch2 * ch2 + ch2 * c)
@@ -2514,18 +2501,6 @@ def _engine_inputs(device, b, label, seed):
                       rng.rand(b, 1, label, label) > 0.3)]
 
 
-def _forward_fps(fn, inputs, iters=5):
-    for _ in range(2):
-        fn(*inputs)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn(*inputs)
-    end.record()
-    torch.cuda.synchronize()
-    return iters * inputs[0].shape[0] / (start.elapsed_time(end) / 1e3)
-
-
 def phase_engines(cs, device):
     """Both engines at full width, bf16, batch 64 (the main paths of this
     slice); returns each engine's (K3, K4, K1, K4's tail) launches per
@@ -2535,6 +2510,7 @@ def phase_engines(cs, device):
                                                                    make_unit_fused_apply)
     from pixelwiseregression_tpu_torch.ops import cuda_fused as cf
     from pixelwiseregression_tpu_torch.ops import cuda_hourglass as ch
+    from pixelwiseregression_tpu_torch.tools import ab_common
 
     builders = {"unit": make_unit_fused_apply, "fused": make_fused_apply}
     model = _engine_model(device, torch.bfloat16)
@@ -2598,7 +2574,8 @@ def phase_engines(cs, device):
     for rep in range(3):
         for name in (forwards if rep % 2 == 0 else reversed(list(forwards))):
             with torch.inference_mode():
-                fps[name].append(_forward_fps(forwards[name], inputs))
+                sample = ab_common.make_sampler(lambda: forwards[name](*inputs), device, 5)
+                fps[name].append(inputs[0].shape[0] / sample())
     for name, vals in fps.items():
         print(f"forward frames/s {name} NYU stages={STAGES} bf16 batch={ENGINE_BATCH}: median "
               f"{statistics.median(vals):.1f} of {[round(v, 1) for v in vals]}")
@@ -2703,8 +2680,8 @@ def phase_normrelu(device):
             counts = _kernels_per_call(kernel)
             assert counts == (1, 1), f"K5 launched {counts} (norm, other) kernels a call"
             launched = sum(counts)
-            ms, plain_ms, lib_ms = _median_ms(kernel), _median_ms(plain, runs=5, iters=5), \
-                _median_ms(library)
+            ms, lib_ms = _turns([kernel])[0][0], _turns([library])[0][0]
+            plain_ms = _turns([plain], runs=5, iters=5)[0][0]
             n = x.numel()
             bound, by = _bound(12 * n, 2 * 3 * n + 4 * (2 * shape[0] * c + 4 * c), "f32")
             line += (f" kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
@@ -2736,7 +2713,7 @@ def _repeat_turns(x):
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), x.repeat(1, 1, 3).view(torch.int16)), "repeat mode"
     del got
-    (ms, spread), (lib_ms, lib_spread) = _interleaved_ms(
+    (ms, spread), (lib_ms, lib_spread) = _turns(
         [lambda: ap.build_xm(x, H, W, "repeat"), lambda: x.repeat(1, 1, 3)])
     verdict = _turns_verdict(ms, spread, lib_ms, lib_spread)
     bound, by = _bound(0, 2 * 4 * x.numel(), "bf16")
@@ -2767,8 +2744,8 @@ def phase_ablate(device):
     out = {}
 
     def record(name, err, kernel, plain, library, bound, note, timed=None):
-        ms, lib_ms = timed or (_median_ms(kernel), _median_ms(library) if library else None)
-        plain_ms = _median_ms(plain, runs=3, iters=3)
+        ms, lib_ms = timed or (_turns([kernel])[0][0], _turns([library])[0][0] if library else None)
+        plain_ms = _turns([plain], runs=3, iters=3)[0][0]
         bms, by = bound
         print(f"kernel {name} [{b},{hw},{c}] bf16: max_abs_err={err:.3e}{note} kernel_ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms="
@@ -2785,7 +2762,7 @@ def phase_ablate(device):
     dst = torch.empty_like(x)
     # the copy against Tensor.copy_ in turns: slower only if its median
     # exceeds copy_'s by more than the larger of the two spreads
-    (ms, spread), (lib_ms, lib_spread) = _interleaved_ms([lambda: ap.copy(x), lambda: dst.copy_(x)])
+    (ms, spread), (lib_ms, lib_spread) = _turns([lambda: ap.copy(x), lambda: dst.copy_(x)])
     verdict = _turns_verdict(ms, spread, lib_ms, lib_spread)
     print(f"kernel ablate_copy vs Tensor.copy_ [{b},{hw},{c}] bf16, 7 turns of 20 calls each: "
           f"copy {ms:.5f} ms (spread {spread:.4f}), copy_ {lib_ms:.5f} ms (spread "
@@ -2848,7 +2825,7 @@ def phase_ablate(device):
     torch.cuda.synchronize()
     serr, sulps, sshare = _rounding_gap(got, want)
     assert sulps <= 2.0, f"xm_dots at the stem shape: {sulps:.2f} bf16 ulps of the scale"
-    sms = _median_ms(lambda: ap.xm_dots(xr, w2, hws, (0, 0, 0)))
+    sms = _turns([lambda: ap.xm_dots(xr, w2, hws, (0, 0, 0))])[0][0]
     sbound, sby = _bound(2 * b * hws * 3 * 192 * 128, 2 * (xr.numel() + got.numel() + w2.numel()),
                          "bf16")
     print(f"kernel ablate_build_xm [{b},{hws},64] bf16: probe_cat and repeat bit-exact; "
@@ -2995,8 +2972,7 @@ def phase_tools():
     total = dict.fromkeys(ab_common.COUNTERS, 0)
     for name, kernels in TOOLS:
         tool = importlib.import_module(f"pixelwiseregression_tpu_torch.tools.{name}")
-        for mod, attr in ab_common.COUNTERS.values():
-            setattr(mod, attr, 0)
+        ab_common.reset_counts()
         print(f"tool {name} {' '.join(TOOL_ARGS)}:", flush=True)
         t = time.perf_counter()
         result = tool.main(TOOL_ARGS)
@@ -3017,17 +2993,22 @@ def phase_tools():
 
 
 # the port bench's runs: a name, its flags, its headline metric and the
-# launches of the headline's counted call (any other counter 0); a run
+# launches of the headline's counted call (any other counter of
+# ab_common.COUNTERS 0: conv3x3 only in the f32 run's forward); a run
 # without --no_train adds the train line, whose counted step launches
 # BENCH_TRAIN_LAUNCHES (K2 one kernel a call: no dlabel)
 BENCH_RUNS = (
     ("model stage 1", ["--no_train", "--no_serving"], "inference_fps_nyu_stage1_128", {"K1": 1}),
     ("unit engine stage 1", ["--engine", "unit", "--no_train", "--no_serving"],
      "inference_fps_nyu_stage1_128_instancenorm", {"K3": 17, "K1": 1}),
+    # K4's 29 kernels a bf16 call at [256, 64, 64, 128], level 4 (phase_hourglass)
     ("fused engine stage 1", ["--engine", "fused", "--no_train", "--no_serving"],
-     "inference_fps_nyu_stage1_128_instancenorm", {"K4": 1, "K4_tail": 1, "K1": 1}),
+     "inference_fps_nyu_stage1_128_instancenorm",
+     {"K4": 1, "K4_kernels": 29, "K4_tail": 1, "K1": 1}),
     ("model stage 2 and train", ["--stages", "2", "--no_serving"], "inference_fps_nyu_stage2_128",
      {"K1": STAGES}),
+    ("model stage 2 f32", ["--stages", "2", "--dtype", "f32", "--no_train", "--no_serving"],
+     "inference_fps_nyu_stage2_128", {"K1": STAGES, "conv3x3": CONVS}),
     ("model and int8 serving stage 1", ["--no_train", "--serving"], "inference_fps_nyu_stage1_128",
      {"K1": 1}),
 )
@@ -3042,23 +3023,19 @@ def phase_bench():
     kernel counter set to 0 just before it and read just after; returns the
     launches by counter, summed over the runs."""
     from pixelwiseregression_tpu_torch import bench
-    from pixelwiseregression_tpu_torch.models import layers
-    from pixelwiseregression_tpu_torch.ops import cuda_fused, cuda_hourglass, cuda_softargmax
+    from pixelwiseregression_tpu_torch.tools import ab_common
 
-    total = dict.fromkeys(bench.read_launches(), 0)
+    total = dict.fromkeys(ab_common.COUNTERS, 0)
     for name, argv, headline, want in BENCH_RUNS:
         train = "--no_train" not in argv
         serving = "--serving" in argv
-        cuda_softargmax.LAUNCHES = cuda_softargmax.BWD_LAUNCHES = 0
-        cuda_softargmax.BWD_KERNEL_LAUNCHES = 0
-        cuda_fused.LAUNCHES = cuda_hourglass.LAUNCHES = cuda_hourglass.TAIL_LAUNCHES = 0
-        layers.INT_MM_CALLS = 0
+        ab_common.reset_counts()
         out, t = io.StringIO(), time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = bench.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        counts = bench.read_launches()
+        counts = ab_common.read_counts()
         lines = [json.loads(line) for line in out.getvalue().splitlines()]
         for line in lines:
             print(f"bench {name}: {json.dumps(line)}", flush=True)
@@ -3337,7 +3314,8 @@ def main() -> int:
         *k6_rows,
         {"name": "conv3x3_f32", "route": "cuda", "source": source.format("conv3x3_f32"),
          "replaces": None, "launches": CONV_LAUNCHES["train_f32"],
-         "launches_by_path": {**CONV_LAUNCHES, "tools": tool_launches["conv3x3"]},
+         "launches_by_path": {**CONV_LAUNCHES, "tools": tool_launches["conv3x3"],
+                              "bench": bench_launches["conv3x3"]},
          "max_abs_err": conv[TRAIN_BATCH]["max_abs_err"], "ms": conv[TRAIN_BATCH]["device_ms"],
          "plain_ms": None, "library_ms": conv[TRAIN_BATCH]["cudnn_ms"], "by_batch": conv,
          "shape": conv[TRAIN_BATCH]["shape"], "dtype": "f32",

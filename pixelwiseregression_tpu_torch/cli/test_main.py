@@ -28,6 +28,7 @@ from pixelwiseregression_tpu_torch.cli.common import (
     resolve_num_workers,
 )
 from pixelwiseregression_tpu_torch.core.camera import recover_uvd
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import get_source
@@ -73,8 +74,7 @@ def run_inference(args, dataset_name: str, fullregression: bool = False, subject
         suffix = f"{args.suffix}_subject{subject}"
     ckpt_path = _find_model_file("Model", f"{dataset_name}_{suffix}_{args.seed}")
     # an f32 model runs in f32 on the card, as in serve.Predictor
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_off()
     model = (FullRegression if fullregression else PixelwiseRegression)(**model_kw)
     model.load_state_dict(load_checkpoint(ckpt_path)["state_dict"])
     model.to(device).eval()

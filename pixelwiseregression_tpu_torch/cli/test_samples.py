@@ -24,6 +24,7 @@ import torch
 
 from pixelwiseregression_tpu_torch.cli.common import model_kwargs_from_args, resolve_device
 from pixelwiseregression_tpu_torch.cli.test_main import _find_model_file
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.loader import Loader, to_device
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import get_source
@@ -54,8 +55,7 @@ def add_model_args(p: argparse.ArgumentParser):
 def load_model(args, joints: int, path: str, device) -> PixelwiseRegression:
     """The flags' model (f32) with the checkpoint's weights, in eval mode on
     ``device``; TF32 off, as the test CLI runs."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_off()
     model = PixelwiseRegression(**model_kwargs_from_args(args, joints))
     model.load_state_dict(load_checkpoint(path)["state_dict"])
     return model.to(device).eval()

@@ -29,6 +29,8 @@ import sys
 import numpy as np
 import torch
 
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
+
 def _last_uvd(out) -> np.ndarray:
     """The last stage's uvd of a model's output list (a (heatmaps, depthmaps,
     uvd) tuple, or the uvd itself), as f32 numpy."""
@@ -130,7 +132,7 @@ def main(argv=None) -> int:
         if ref in (ckpt.get("model_param") or {}):
             setattr(args, ours, ckpt["model_param"][ref])
 
-    torch.backends.cudnn.allow_tf32 = False
+    tf32_off()
     tm = ref_model.PixelwiseRegression(
         spec.joint_number, stage=args.stages, label_size=args.label_size,
         features=args.features, level=args.level, norm_method=args.norm_method,

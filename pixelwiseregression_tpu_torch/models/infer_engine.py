@@ -18,10 +18,9 @@ f32 maps, as the JAX engines call it; ``decoder="cuda"`` blocks decode
 through K1 (``ops/cuda_softargmax.py``).
 
 The builders snapshot the model's weights, as the JAX builders close over
-their variables: rebuild after changing them. They set
-``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``
-to False, as ``Predictor`` does. Inside, activations run NHWC:
-``channels_last`` tensors, which the kernels see as contiguous
+their variables: rebuild after changing them. They turn TF32 off
+(``core.precision.tf32_off``), as ``Predictor`` does. Inside, activations
+run NHWC: ``channels_last`` tensors, which the kernels see as contiguous
 ``[B, H, W, C]`` views. ``plain=True`` runs the kernels' plain versions on
 any device (the counterpart of the JAX builders' interpret mode).
 """
@@ -31,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.models.layers import (
     InstanceNorm,
     _InstanceNormFn,
@@ -115,11 +115,6 @@ def _check_supported(model, name):
         raise ValueError(f"{name} does not support quantized models, got {model.quant}")
 
 
-def _tf32_off():
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _conv(x, p, *, stride: int = 1, dtype):
     """The plain conv: ``models.layers.Conv`` (k//2 padding, weight and
     bias cast to the activation dtype)."""
@@ -187,7 +182,7 @@ def make_unit_fused_apply(model, *, min_res: int = 32, plain: bool = False):
     _check_supported(model, "unit-fused engine")
     if model.kernel_size != 3:
         raise ValueError("unit-fused engine supports kernel_size=3 only")
-    _tf32_off()
+    tf32_off()
     params, n_stem = _params(model, hourglass=True)
     dtype = model.dtype
     chain = cuda_fused.fused_chain_plain if plain else cuda_fused.fused_chain
@@ -246,7 +241,7 @@ def make_fused_apply(model, *, plain: bool = False):
     (NCHW, as ``PixelwiseRegression.forward``) with each stage's hourglass
     one K4 call; the stacked hourglass weights are made here, once."""
     _check_supported(model, "fused engine")
-    _tf32_off()
+    tf32_off()
     params, n_stem = _params(model, hourglass=False)
     dtype = model.dtype
     run = cuda_hourglass.hourglass_fused_plain if plain else cuda_hourglass.hourglass_fused

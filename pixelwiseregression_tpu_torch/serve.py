@@ -57,6 +57,7 @@ from torch import nn
 
 from pixelwiseregression_tpu_torch import obs
 from pixelwiseregression_tpu_torch.core.camera import recover_uvd
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import SPECS, DatasetSpec
 from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
@@ -173,12 +174,10 @@ class Predictor:
         ``data_parallel=True`` places one replica on each of ``devices``
         (default: every visible card) and ignores ``device``.
 
-        Sets ``torch.backends.cudnn.allow_tf32`` and
-        ``torch.backends.cuda.matmul.allow_tf32`` to False, so that an f32
-        model runs in f32 on the card.
+        Turns TF32 off (``core.precision.tf32_off``), so that an f32 model
+        runs in f32 on the card.
         """
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_off()
         spec = SPECS[dataset]
         if fullregression and quant not in (None, "none"):
             raise ValueError("quant serving is PixelwiseRegression-only (FullRegression convs "

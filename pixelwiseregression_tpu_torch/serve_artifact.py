@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch.export.passes import move_to_device_pass
 
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.loader import stack_records
 from pixelwiseregression_tpu_torch.data.sources import SPECS, load_bbox, make_record
 
@@ -151,17 +152,14 @@ class ServingArtifact:
         """Read ``path`` and place its program on ``device`` (default: the
         device it was exported on).
 
-        Sets ``torch.backends.cudnn.allow_tf32`` and
-        ``torch.backends.cuda.matmul.allow_tf32`` to False, as
-        ``serve.Predictor`` does: an f32 program runs in f32 on the card
-        (cuDNN's TF32 default would part from the live predictor by pixels
-        on a deep f32 model)."""
+        Turns TF32 off (``core.precision.tf32_off``), as ``serve.Predictor``
+        does: an f32 program runs in f32 on the card (cuDNN's TF32 default
+        would part from the live predictor by pixels on a deep f32 model)."""
         # registers torch.ops.pwr.softargmax_fwd and pwr.conv3x3_f32, which
         # the program calls
         from pixelwiseregression_tpu_torch.ops import cuda_conv, cuda_softargmax  # noqa: F401
 
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_off()
 
         with open(path, "rb") as f:
             magic = f.read(len(_MAGIC))

@@ -9,7 +9,7 @@ uncalibrated here, the raw one-pass form, as in the bench) and
 (``ab_common.forward_call``: its bench's inputs, stage 1, batch 256, bf16)
 with the kernel decoder, one K1 a stage a call (checked by
 ``ab_common.run``), sampled in turns. Each variant's bound is the forward's
-conv operations (``bench.conv_flops``) over the bf16 peak.
+conv operations (``ab_common.conv_flops``) over the bf16 peak.
 
 Run: python -m pixelwiseregression_tpu_torch.tools.bench_norm_variants
          [--batch 256] [--stages 1] [--iters 16] [--rounds 3] [--device cuda|cpu]
@@ -17,10 +17,9 @@ Run: python -m pixelwiseregression_tpu_torch.tools.bench_norm_variants
 
 from __future__ import annotations
 
-from pixelwiseregression_tpu_torch.bench import conv_flops
 from pixelwiseregression_tpu_torch.cli.common import DECODERS
 from pixelwiseregression_tpu_torch.tools import ab_common
-from pixelwiseregression_tpu_torch.tools.ab_common import Variant
+from pixelwiseregression_tpu_torch.tools.ab_common import Variant, conv_flops
 
 NORMS = ("instance", "instance_anchored", "instance_fast")
 

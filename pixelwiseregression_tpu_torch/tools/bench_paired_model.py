@@ -31,10 +31,9 @@ from __future__ import annotations
 
 import torch
 
-from pixelwiseregression_tpu_torch.bench import conv_flops, make_inputs
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 from pixelwiseregression_tpu_torch.tools import ab_common
-from pixelwiseregression_tpu_torch.tools.ab_common import Variant
+from pixelwiseregression_tpu_torch.tools.ab_common import Variant, conv_flops, make_inputs
 
 VARIANTS = {"off": None, "sep/separate": ("separate", "separate"),
             "sep/blockdiag": ("separate", "blockdiag"), "grp/blockdiag": ("grouped", "blockdiag"),

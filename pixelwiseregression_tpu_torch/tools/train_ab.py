@@ -10,7 +10,7 @@ delta has no counterpart). With the kernel decoder each step launches K1
 and K2 once a stage, which ``ab_common.run`` checks. ``--batches`` sweeps
 batch sizes (each a run of its own), ``--decoders`` the decoders. Each
 variant's bound is the step's conv operations (three times the forward's,
-``bench.conv_flops``) over the bf16 peak.
+``ab_common.conv_flops``) over the bf16 peak.
 
 Run: python -m pixelwiseregression_tpu_torch.tools.train_ab
          [--batch 128] [--batches 96,128] [--norms instance,instance_fast,batch]
@@ -19,7 +19,6 @@ Run: python -m pixelwiseregression_tpu_torch.tools.train_ab
 
 from __future__ import annotations
 
-from pixelwiseregression_tpu_torch.bench import conv_flops
 from pixelwiseregression_tpu_torch.cli.common import DECODERS
 from pixelwiseregression_tpu_torch.tools import ab_common
 from pixelwiseregression_tpu_torch.tools.ab_common import Variant
@@ -33,8 +32,8 @@ def step_variant(device, batch: int, args, norm: str, decoder: str, remat: bool 
                                             args.features, args.level, norm, "bf16", decoder,
                                             remat=remat)
     k = args.stages if DECODERS[decoder] == "cuda" else 0
-    return Variant(call, launches={"K1": k * (2 if remat else 1), "K2": k},
-                   bound_s=ab_common.bound_seconds(3 * conv_flops(model) * batch, 0))
+    return Variant(call, launches={"K1": k * (2 if remat else 1), "K2": k, "K2_kernels": k},
+                   bound_s=ab_common.bound_seconds(3 * ab_common.conv_flops(model) * batch, 0))
 
 
 def parse_args(argv=None):

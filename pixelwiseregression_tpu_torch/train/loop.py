@@ -44,6 +44,7 @@ from torch import nn
 
 from pixelwiseregression_tpu_torch import obs
 from pixelwiseregression_tpu_torch.core.camera import Camera, recover_uvd
+from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.preprocess import (
     PreprocessConfig,
     draw_augmentation,
@@ -100,12 +101,10 @@ def make_optimizer(params, opt: str = "adam", lr: float = 1e-3, beta1: float = 0
 def create_train_state(model: nn.Module, **optimizer_kwargs) -> TrainState:
     """A fresh state around ``model`` (``make_optimizer``'s keyword arguments).
 
-    Sets ``torch.backends.cudnn.allow_tf32`` and
-    ``torch.backends.cuda.matmul.allow_tf32`` to False, as ``Predictor``
-    does, so that an f32 model trains in f32 on the card.
+    Turns TF32 off (``core.precision.tf32_off``), as ``Predictor`` does, so
+    that an f32 model trains in f32 on the card.
     """
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_off()
     optimizer, scheduler = make_optimizer(model.parameters(), **optimizer_kwargs)
     return TrainState(model, optimizer, scheduler)
 

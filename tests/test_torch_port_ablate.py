@@ -29,6 +29,8 @@ from pixelwiseregression_tpu_torch.ops import ablate_pieces as ap
 from pixelwiseregression_tpu_torch.tools import ab_common, ablate_fused2, ablate_fused3
 from pixelwiseregression_tpu_torch.tools import ablate_fused_unit, bench_fused_chain
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 H = W = 8
 HW = H * W
 DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16), "float32": (jnp.float32, torch.float32)}

@@ -30,6 +30,9 @@ from pixelwiseregression_tpu_torch.ops.softargmax import soft_argmax_decode_flat
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact, export_artifact
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = dict(stages=1, features=16, level=1, label_size=32)
 
@@ -261,7 +264,7 @@ np.save({str(tmp_path / 'out.npy')!r}, art.predict(frames, coms)["uvd"])
 """
     np.savez(tmp_path / "in.npz", frames=FRAMES[:1], coms=COMS[:1])
     r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                       timeout=300, cwd=REPO)
+                       timeout=300, cwd=REPO, env=torch_port_threads.env())
     assert r.returncode == 0, r.stderr[-3000:]
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"), expect)
 

@@ -19,6 +19,8 @@ from pixelwiseregression_tpu_torch.data.sources import SPECS, HAND17Source, load
 from pixelwiseregression_tpu_torch.ops import localize as loc
 from pixelwiseregression_tpu_torch.serve import Predictor
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 SPEC = SPECS["HAND17"]
 H, W = SPEC.frame_h, SPEC.frame_w
 

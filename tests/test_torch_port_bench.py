@@ -1,16 +1,22 @@
 """The port bench (``pixelwiseregression_tpu_torch/bench.py``) on the CPU:
 its estimator against the JAX bench's on the same sample sequences, its
-FLOP count against forward hooks on the port's model, its inputs against
-the JAX bench's draws, and ``main`` end to end at a tiny config on the
-kernels' plain versions (times here are host times, not device readings).
+FLOP count and conv3x3_f32 launches against forward hooks on the port's
+model, its inputs against the JAX bench's draws, and ``main`` end to end at
+a tiny config on the kernels' plain versions (times here are host times,
+not device readings). Two drift guards: ``tools/ab_common``'s counter
+registry holds every launch counter of the port, and every entry point
+that builds or loads a model turns TF32 off.
 
 The JAX bench is the root ``bench.py``; importing it runs nothing and
 imports neither jax nor the JAX package.
 """
 
+import importlib
 import itertools
 import json
 import os
+import pkgutil
+import re
 import sys
 
 import numpy as np
@@ -21,22 +27,27 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench as jax_bench  # noqa: E402
 
-from pixelwiseregression_tpu_torch import bench  # noqa: E402
+from pixelwiseregression_tpu_torch import bench, ops  # noqa: E402
+from pixelwiseregression_tpu_torch.models import layers  # noqa: E402
+from pixelwiseregression_tpu_torch.models.infer_engine import (  # noqa: E402
+    make_fused_apply,
+    make_unit_fused_apply,
+)
+from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression  # noqa: E402
+from pixelwiseregression_tpu_torch.ops import cuda_conv  # noqa: E402
+from pixelwiseregression_tpu_torch.serve import Predictor  # noqa: E402
+from pixelwiseregression_tpu_torch.serve_artifact import (  # noqa: E402
+    ServingArtifact,
+    export_artifact,
+)
 from pixelwiseregression_tpu_torch.tools import ab_common  # noqa: E402
+from pixelwiseregression_tpu_torch.train.loop import create_train_state  # noqa: E402
+
+from torch_port_threads import one_thread  # noqa: E402, F401 (autouse)
 
 T = 1.0e-4
 TINY = ["--joints", "5", "--features", "16", "--level", "2", "--batch_size", "2",
         "--train_batch_size", "2", "--iters", "2", "--repeat", "3"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: beside other test processes on the same cores,
-    torch's default thread pool slows these small CPU runs a hundredfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _sampler(seq, cycle=True):
@@ -121,6 +132,32 @@ def test_conv_flops_match_forward_hooks(width, stages):
         assert abs(flops / 1e9 - {1: 12.61, 2: 20.88}[stages]) <= 0.01
 
 
+@pytest.mark.parametrize("width,stages,dtype", [("small", 1, "f32"), ("default", 1, "f32"),
+                                                ("default", 2, "f32"), ("default", 2, "bf16")])
+def test_conv3x3_launches_match_forward_hooks(width, stages, dtype):
+    """``conv3x3_launches`` counts the convs whose forward takes the
+    kernel (``layers.Conv``'s rule at each conv's input): 6 a stage of the
+    f32 model at the default width, none in bf16 or at a small width."""
+    argv = ["--decoder", "torch", "--dtype", dtype]
+    if width == "small":
+        argv += ["--joints", "5", "--features", "16", "--level", "2"]
+    model = bench.build_model(bench.parse_args(argv), stages, torch.device("cpu")).eval()
+    taken = [0]
+
+    def hook(m, inp, _out):
+        taken[0] += m.hand_f32 and cuda_conv.takes(inp[0])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, layers.Conv)]
+    with torch.inference_mode():
+        model(*bench.make_inputs(1, 0, torch.device("cpu")))
+    for h in handles:
+        h.remove()
+    assert ab_common.conv3x3_launches(model) == taken[0]
+    if width == "default":
+        assert taken[0] == (6 * stages if dtype == "f32" else 0)
+
+
 def test_inputs_are_the_jax_bench_draws_as_nchw():
     b, seed = 3, 7
     rng = np.random.RandomState(seed)
@@ -189,3 +226,50 @@ def test_refused_flags():
                  ["--engine", "flax"]):
         with pytest.raises(SystemExit):
             bench.parse_args(argv)
+
+
+def test_every_launch_counter_is_in_the_registry():
+    """Each module-level ``*LAUNCHES`` and ``*_CALLS`` counter of ``ops/``
+    and ``models/layers.py`` is one of ``ab_common.COUNTERS``, and each of
+    those is one of them: a bench line's launch check sees every kernel."""
+    mods = [importlib.import_module(m.name)
+            for m in pkgutil.iter_modules(ops.__path__, ops.__name__ + ".")] + [layers]
+    found = {(mod.__name__, name) for mod in mods for name, v in vars(mod).items()
+             if re.fullmatch(r"[A-Z0-9_]*(LAUNCHES|_CALLS)", name) and isinstance(v, int)}
+    registry = {(mod.__name__, name) for mod, name in ab_common.COUNTERS.values()}
+    assert found == registry, (sorted(found - registry), sorted(registry - found))
+
+
+TF32_ENTRY_POINTS = ("create_train_state", "Predictor.from_state_dict", "ServingArtifact.load",
+                     "make_unit_fused_apply", "make_fused_apply")
+
+
+@pytest.mark.parametrize("entry", TF32_ENTRY_POINTS)
+def test_entry_point_turns_tf32_off(entry, tmp_path, monkeypatch):
+    """With both TF32 flags on, each entry point that builds or loads a
+    model on the CPU without files (the artifact exported here first)
+    leaves both off: an f32 model runs in f32 on the card."""
+    torch.manual_seed(0)
+    model = PixelwiseRegression(14, stage=1, features=16, level=1, norm_method="instance").eval()
+    kw = dict(batch_size=2, stages=1, features=16, level=1, label_size=32,
+              norm_method="instance")
+
+    def predictor():
+        return Predictor.from_state_dict(model.state_dict(), "NYU", "cpu", **kw)
+
+    def artifact():
+        path = str(tmp_path / "nyu.pwrsrv")
+        export_artifact(predictor(), path)
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        return ServingArtifact.load(path)
+
+    calls = {"create_train_state": lambda: create_train_state(model),
+             "Predictor.from_state_dict": predictor, "ServingArtifact.load": artifact,
+             "make_unit_fused_apply": lambda: make_unit_fused_apply(model),
+             "make_fused_apply": lambda: make_fused_apply(model)}
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    calls[entry]()
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

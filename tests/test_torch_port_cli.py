@@ -44,21 +44,12 @@ from pixelwiseregression_tpu_torch.train import checkpoint as tck
 from pixelwiseregression_tpu_torch.train import loop as tloop
 
 from test_torch_port_ops import _CAM, _train_batch
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "make_msra_fixture.py")
 SMALL = dict(stages=1, features=16, level=2, label_size=32)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: beside other test processes on the same cores,
-    torch's default thread pool slows these small CPU runs a hundredfold
-    (tests/test_torch_port_bench.py measured it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _zero_gradient_params(model):
@@ -283,7 +274,7 @@ def test_jax_ckpt_serves_through_predictor_without_jax(tmp_path, jax_variables):
         f"np.save({str(tmp_path / 'out.npy')!r}, uvd)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'pixelwiseregression_tpu']\n")
     r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                       timeout=300, cwd=REPO)
+                       timeout=300, cwd=REPO, env=torch_port_threads.env())
     assert r.returncode == 0, r.stderr[-3000:]
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"), got)
 
@@ -525,7 +516,8 @@ def cli_runs(tmp_path_factory):
     ``.ckpt`` for one epoch with the same seed, at lr 1e-5."""
     base = tmp_path_factory.mktemp("cli")
     root = str(base / "msra")
-    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True)
+    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True,
+                   env=torch_port_threads.env())
     images = os.environ.get("PWR_TB_IMAGES")
     os.environ["PWR_TB_IMAGES"] = "0"  # the JAX CLI's image logging takes most of its time
     try:
@@ -645,8 +637,9 @@ def test_module_entry_points_round_trip(tmp_path):
     steps 3-6) and test_msra. (Resuming from a .pt runs the code that
     resumes from a .ckpt above, and test_checkpoint_round_trip_* holds it.)"""
     root = str(tmp_path / "msra")
-    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True)
-    env = dict(os.environ, PYTHONPATH=REPO, PWR_TB_IMAGES="0", OMP_NUM_THREADS="1")
+    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True,
+                   env=torch_port_threads.env())
+    env = torch_port_threads.env(PYTHONPATH=REPO, PWR_TB_IMAGES="0")
     small = ["--features", "16", "--level", "2", "--stages", "1", "--label_size", "32",
              "--batch_size", "8", "--num_workers", "2", "--data_path", root, "--device", "cpu"]
 

@@ -22,6 +22,8 @@ from pixelwiseregression_tpu_torch.ops import cuda_conv
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.serve_artifact import ServingArtifact, export_artifact
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -25,6 +25,9 @@ from pixelwiseregression_tpu_torch import native as tnative
 from pixelwiseregression_tpu_torch.data import loader as tloader
 from pixelwiseregression_tpu_torch.data import sources as tsrc
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 DATASETS = ("MSRA", "ICVL", "NYU", "HAND17")
 SPLITS = ("train", "val", "test")  # MSRA's: of held-out subject 0
@@ -37,7 +40,8 @@ def generated(tmp_path_factory):
     for name in DATASETS:
         root = str(tmp_path_factory.mktemp(f"gen_{name.lower()}"))
         script = os.path.join(FIXTURES, f"make_{name.lower()}_fixture.py")
-        subprocess.run([sys.executable, script, root], check=True, capture_output=True)
+        subprocess.run([sys.executable, script, root], check=True, capture_output=True,
+                       env=torch_port_threads.env())
         out[name] = root
     return out
 

@@ -33,6 +33,8 @@ from pixelwiseregression_tpu_torch.models import infer_engine as tengine
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression as PortModel
 from pixelwiseregression_tpu_torch.ops import cuda_fused, cuda_hourglass, cuda_softargmax
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 JOINTS = 5
 
 # name: (engine, stages, level, features, dtype), as tests/test_infer_engine.py builds them

@@ -47,8 +47,10 @@ from pixelwiseregression_tpu_torch.serve_http import Client, make_server
 from pixelwiseregression_tpu_torch.tools import export_model
 from pixelwiseregression_tpu_torch.train import loop as tloop
 
-from test_torch_port_cli import FIXTURE, REPO, _in_dir, _one_thread  # noqa: F401 (autouse)
+from test_torch_port_cli import FIXTURE, REPO, _in_dir
 from test_torch_port_ops import _AUG, _CAM, _train_batch, jax_draws
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
 
 J, L, F = 5, 32, 16
 ANCHORS = ("anchor", "anchor_n")
@@ -414,7 +416,7 @@ def test_fullreg_parsers_keep_the_jax_flags_and_defaults(kind):
 
 
 def _run(args, cwd, timeout=600):
-    env = dict(os.environ, PYTHONPATH=REPO, PWR_TB_IMAGES="0", OMP_NUM_THREADS="1")
+    env = torch_port_threads.env(PYTHONPATH=REPO, PWR_TB_IMAGES="0")
     r = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
                        timeout=timeout, cwd=cwd, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -431,7 +433,8 @@ def fullreg_cli(tmp_path_factory):
     0 held out) and its ``test_fullregression`` on the .pt it wrote."""
     base = tmp_path_factory.mktemp("fullreg")
     root = str(base / "msra")
-    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True)
+    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True,
+                   env=torch_port_threads.env())
     _run(["pixelwiseregression_tpu_torch.cli.check_dataset", "--dataset", "MSRA",
           "--data_path", root, "--device", "cpu"], base)
     train = _run(["pixelwiseregression_tpu_torch.cli.train_fullregression", "--dataset", "MSRA",

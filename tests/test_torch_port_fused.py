@@ -43,6 +43,9 @@ from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass as PortHour
 from pixelwiseregression_tpu_torch.ops import cuda_fused as tfused
 from pixelwiseregression_tpu_torch.ops import cuda_hourglass as thg
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 F32_REL = 2e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -230,8 +233,9 @@ def hourglass_bf16_exact(hourglasses, tmp_path_factory):
         arrays[f"x{level}"] = h["x"]
         arrays.update({f"{level}/{k}": np.asarray(a) for k, a in h["stacked"].items()})
     np.savez(tmp / "in.npz", **arrays)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false"))
+    env = torch_port_threads.env(
+        JAX_PLATFORMS="cpu",
+        XLA_FLAGS=os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false")
     r = subprocess.run([sys.executable, "-c", _BF16_EXACT, str(tmp / "in.npz"), str(tmp / "out.npz"),
                         *map(str, LEVELS)], capture_output=True, text=True, timeout=300,
                        cwd=REPO, env=env)

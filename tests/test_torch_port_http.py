@@ -26,6 +26,9 @@ from pixelwiseregression_tpu_torch.tools import export_model
 from pixelwiseregression_tpu_torch.train.checkpoint import save_checkpoint
 from pixelwiseregression_tpu_torch import serve_http
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = dict(stages=1, features=16, level=1, label_size=32)
 
@@ -216,7 +219,7 @@ def test_export_then_serve_on_the_cpu(state, tmp_path):
     coms = np.array([[160.0, 120.0, 400.0], [170.0, 110.0, 420.0]])
     frames = np.stack([_blob_frame(*c) for c in coms])
     np.savez(tmp_path / "calib.npz", frames=frames, coms=coms)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = torch_port_threads.env(PYTHONPATH=REPO)
     path = str(tmp_path / "q.pwrsrv")
     r = subprocess.run(
         [sys.executable, "-m", "pixelwiseregression_tpu_torch.tools.export_model", "--ckpt",

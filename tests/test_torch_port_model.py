@@ -21,6 +21,8 @@ from pixelwiseregression_tpu_torch.compat.flax_bridge import state_dict_from_fla
 from pixelwiseregression_tpu_torch.models import layers as tl
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression as PortModel
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 1, 2))))

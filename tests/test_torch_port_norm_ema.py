@@ -20,6 +20,8 @@ from pixelwiseregression_tpu_torch.models.layers import InstanceNorm, _InstanceN
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
 from pixelwiseregression_tpu_torch.parallel import mesh
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 
 

@@ -33,6 +33,8 @@ from pixelwiseregression_tpu_torch.ops import cuda_normrelu as tcn
 from pixelwiseregression_tpu_torch.ops import fused_normrelu as tnr
 from pixelwiseregression_tpu_torch.tools import normrelu_bwd_ab
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 EPS = 1e-5
 DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16), "float32": (jnp.float32, torch.float32)}
 

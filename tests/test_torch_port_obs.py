@@ -27,6 +27,8 @@ from pixelwiseregression_tpu_torch.train.loop import (PHASES, LossConfig, create
                                                       make_train_step, make_train_step_fullreg)
 from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 JOINTS = 14
 SPEC = SPECS["NYU"]
 CFG = PreprocessConfig(fx=SPEC.camera.fx, fy=SPEC.camera.fy, halfu=SPEC.camera.halfu,

@@ -40,6 +40,9 @@ from pixelwiseregression_tpu_torch.ops import image as timg
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
 from pixelwiseregression_tpu_torch.utils import synth as tsynth
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 CPU = torch.device("cpu")
 DATASETS = ["MSRA", "ICVL", "NYU", "HAND17"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -546,7 +549,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "print('MODULES', ' '.join(mods))\n"
     )
     r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                       timeout=300, cwd=REPO)
+                       timeout=300, cwd=REPO, env=torch_port_threads.env())
     assert r.returncode == 0, r.stderr[-3000:]
     mods = set(r.stdout.split("MODULES")[1].split())
     pkg = "pixelwiseregression_tpu_torch."

@@ -31,7 +31,9 @@ from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression a
 from pixelwiseregression_tpu_torch.tools import bench_paired_model
 from pixelwiseregression_tpu_torch.train.checkpoint import save_checkpoint
 
-from test_torch_port_cli import FIXTURE, _one_thread  # noqa: F401 (autouse: one intra-op thread)
+from test_torch_port_cli import FIXTURE
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
 
 J, S, F = 5, 32, 32
 FORMS = [("separate", "blockdiag"), ("grouped", "blockdiag"), ("grouped", "separate"),
@@ -290,7 +292,8 @@ def test_entry_point_gates_and_returns_2_without_a_reference(tmp_path, monkeypat
     assert verify_parity.main(["--ckpt", ckpt, "--dataset", "MSRA", "--samples", "4",
                                "--reference", str(ref)]) == 0
     root = str(tmp_path / "msra")
-    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True)
+    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True,
+                   env=torch_port_threads.env())
     build_dataset("MSRA", root, torch.device("cpu"))
     assert verify_parity.main(["--ckpt", ckpt, "--dataset", "MSRA", "--samples", "4",
                                "--data_path", root, "--reference", str(ref)]) == 0

@@ -8,7 +8,6 @@ torchrun; ``Predictor(data_parallel=True)`` against the single Predictor.
 Each comparison states its tolerance.
 """
 
-import os
 import subprocess
 import sys
 
@@ -27,8 +26,10 @@ from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.serve_artifact import export_artifact
 
 import torch_port_ddp_worker as worker
-from test_torch_port_cli import FIXTURE, REPO, _one_thread  # noqa: F401 (autouse)
+from test_torch_port_cli import FIXTURE, REPO
 from test_torch_port_ops import _AUG, _CAM, _train_batch
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
 
 B, LABEL, SEED = 6, 32, 7
 CASES = [("pixelwise", "batch"), ("pixelwise", "instance_anchored"), ("fullreg", "batch"),
@@ -64,24 +65,21 @@ def _case(kind, norm):
 
 def _spawn(tmp_path, cases, world=2, device="cpu", timeout=300):
     """Run the worker on ``world`` ranks (``worker.spawn``, one intra-op
-    thread each); returns each rank's saved results."""
+    thread each: ``torch_port_threads.env``); returns each rank's saved
+    results."""
     path = str(tmp_path / "cases.pt")
     torch.save({"cases": cases, "seed": SEED}, path)
     return worker.spawn(path, str(tmp_path), world, device, timeout=timeout,
-                        env=dict(os.environ, OMP_NUM_THREADS="1"))
+                        env=torch_port_threads.env())
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    """Every case on two gloo ranks and in this process on the global batch."""
+    """Every case on two gloo ranks and in this process on the global batch
+    (on one intra-op thread, as the ranks run: ``one_thread``)."""
     cases = [_case(*c) for c in CASES]
     ranks = _spawn(tmp_path_factory.mktemp("ddp"), cases)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the ranks run (OMP_NUM_THREADS=1)
-    try:
-        single = [worker.run_case(c, torch.device("cpu"), SEED, local=False) for c in cases]
-    finally:
-        torch.set_num_threads(threads)
+    single = [worker.run_case(c, torch.device("cpu"), SEED, local=False) for c in cases]
     return cases, ranks, single
 
 
@@ -209,8 +207,9 @@ def test_train_cli_under_torchrun_on_two_processes(tmp_path):
     with the global step count (32 // 8 = 4), finite; a batch that does not
     divide over the ranks stops the run."""
     root = str(tmp_path / "msra")
-    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True)
-    env = dict(os.environ, PYTHONPATH=REPO, PWR_TB_IMAGES="0", OMP_NUM_THREADS="1")
+    subprocess.run([sys.executable, FIXTURE, root], check=True, capture_output=True,
+                   env=torch_port_threads.env())
+    env = torch_port_threads.env(PYTHONPATH=REPO, PWR_TB_IMAGES="0")
     subprocess.run([sys.executable, "-m", "pixelwiseregression_tpu_torch.cli.check_dataset",
                     "--dataset", "MSRA", "--data_path", root, "--device", "cpu"], check=True,
                    capture_output=True, env=env, cwd=tmp_path, timeout=300)

@@ -40,17 +40,7 @@ from test_torch_port_train import (B, FEATURES, J, LABEL, LEVEL, STAGES, _LOSS, 
 # the existing train-step checks, applied to the steps on preprocessed batches
 from test_torch_port_train import test_train_step_gradients_match as _gradients_match
 from test_torch_port_train import test_train_step_loss_matches as _loss_matches
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread (module scope, so that the module fixtures run
-    under it too): beside other test processes on the same cores, torch's
-    default thread pool slows these small CPU runs many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
 
 
 # --------------------------------------------------------------------------- #

@@ -15,6 +15,8 @@ from pixelwiseregression_tpu_torch.tools import ab_common, profile_common as pc
 from pixelwiseregression_tpu_torch.tools.profile_train_components import RANGES
 from pixelwiseregression_tpu_torch.train import loop
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 EVAL = pc.EVALUATE
 
 

@@ -49,6 +49,9 @@ from pixelwiseregression_tpu_torch.models import layers as tl
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression as PortModel
 from pixelwiseregression_tpu_torch.models.pixelwise import parse_quant
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = dict(joints=5, stage=2, features=16, level=1, norm_method="instance")
 LABEL = 16
@@ -417,7 +420,7 @@ def test_test_cli_calibrates_and_refuses_zero_batches(tmp_path):
     root = str(tmp_path / "msra")
     subprocess.run([sys.executable, os.path.join(REPO, "tests", "fixtures",
                                                  "make_msra_fixture.py"), root],
-                   check=True, capture_output=True)
+                   check=True, capture_output=True, env=torch_port_threads.env())
     torch.manual_seed(0)
     kw = dict(stages=1, features=16, level=1, label_size=32)
     model = PortModel(21, stage=1, features=16, level=1, norm_method="instance")

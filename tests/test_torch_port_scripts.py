@@ -33,6 +33,9 @@ from pixelwiseregression_tpu_torch.tools import bench_http, bench_upsample_add, 
 from pixelwiseregression_tpu_torch.tools import headconv_bwd_split as hs
 from pixelwiseregression_tpu_torch.train.checkpoint import save_checkpoint
 
+import torch_port_threads
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 DATASETS = ("MSRA", "ICVL", "NYU", "HAND17")
@@ -47,7 +50,8 @@ def generated(tmp_path_factory):
     for name in DATASETS:
         root = str(tmp_path_factory.mktemp(f"gen_{name.lower()}"))
         subprocess.run([sys.executable, os.path.join(FIXTURES, f"make_{name.lower()}_fixture.py"),
-                        root], check=True, capture_output=True, timeout=300)
+                        root], check=True, capture_output=True, timeout=300,
+                       env=torch_port_threads.env())
         out[name] = root
     return out
 

@@ -20,6 +20,8 @@ from pixelwiseregression_tpu_torch.data.sources import SPECS
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
+from torch_port_threads import one_thread  # noqa: F401 (autouse)
+
 ARCH = dict(stages=2, features=16, level=2, label_size=32, norm_method="instance_anchored")
 BATCH = 4
 
