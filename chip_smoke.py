@@ -107,12 +107,13 @@ hourglass; K5, the norm+relu backward; K6, the ablation pieces), then:
 
 After the CLI path (8.) comes the serving chain (phase_serving_chain): the
 full-width NYU Predictor at its defaults (instance norm, f32, K1; batch
-32) exported to a .pwrsrv and served from a fresh process that cannot
-import the port's models, its serve module or jax (2 K1 launches a
-request, read there; uvd within 1e-4 of the live Predictor), a poly-batch
-artifact at request sizes 1 and 5, the HTTP server over the artifact with
-8 concurrent clients of 4 frames a burst (replies equal to direct
-predicts, device_calls < requests, p50/p99 and frames/s), the bf16
+32; 4 requests: 8 K1 and 48 conv3x3_f32 launches, one CUDA graph
+captured and 3 replays, asserted) exported to a .pwrsrv and served from a
+fresh process that cannot import the port's models, its serve module or
+jax (2 K1 launches a request, read there; uvd within 1e-4 of the live
+Predictor), a poly-batch artifact at request sizes 1 and 5, the HTTP
+server over the artifact with 8 concurrent clients of 4 frames a burst
+(replies equal to direct predicts, device_calls < requests, p50/p99 and frames/s), the bf16
 batch-norm int8_static_all Predictor (4 calibration requests, finite, K1
 and torch._int_mm counted, timed in turns with bf16), the int8 conv at the
 head shape card vs CPU (int32 accumulators bit-exact) and timed beside
@@ -1218,7 +1219,9 @@ print(json.dumps({"load_s": load_s, "launches": launches, "conv_launches": convs
 def phase_serving_chain(cs, device, smi_line):
     """The deployment chain at full width (NYU, 14 joints, 2 stages, 128
     features, level 4, weights from a seed), as a user runs it: a Predictor
-    at its defaults (instance norm, f32, K1; batch 32) exported to a
+    at its defaults (instance norm, f32, K1; batch 32; its four requests
+    launch K1 twice and the heads' conv 12 times each, the first eager and
+    the other three replays of one CUDA graph, asserted) exported to a
     .pwrsrv, loaded in a fresh process that cannot import the port's models,
     its serve module or jax, answering the four requests (2 K1 launches a
     request, read there; uvd within ARTIFACT_GAP_BOUND of the live
@@ -1235,6 +1238,7 @@ def phase_serving_chain(cs, device, smi_line):
     import tempfile
     import threading
 
+    from pixelwiseregression_tpu_torch import serve
     from pixelwiseregression_tpu_torch.data.sources import SPECS
     from pixelwiseregression_tpu_torch.models import layers
     from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
@@ -1251,9 +1255,16 @@ def phase_serving_chain(cs, device, smi_line):
     pred = Predictor.from_state_dict(state, "NYU", device, batch_size=SERVE_CHAIN_BATCH,
                                      stages=STAGES)
     assert pred.model.dtype == torch.float32 and pred.model.norm_method == "instance"
-    cuda_conv.LAUNCHES = 0
+    cs.LAUNCHES = cuda_conv.LAUNCHES = 0
+    graphs = (serve.GRAPH_CAPTURES, serve.GRAPH_REPLAYS)
     live = [pred.predict(r["frame"], r["com"]) for r in requests]
     torch.cuda.synchronize()
+    captured, replayed = serve.GRAPH_CAPTURES - graphs[0], serve.GRAPH_REPLAYS - graphs[1]
+    print(f"serving chain: f32 Predictor, {len(requests)} requests: K1 launches {cs.LAUNCHES}, "
+          f"conv3x3_f32 {cuda_conv.LAUNCHES}; CUDA graphs captured {captured}, replays "
+          f"{replayed}", flush=True)
+    assert cs.LAUNCHES == STAGES * len(requests), cs.LAUNCHES
+    assert (captured, replayed) == (1, len(requests) - 1), (captured, replayed)
     _count_convs("serve_f32", cuda_conv.LAUNCHES, CONVS * len(requests))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:

@@ -20,6 +20,17 @@ JAX decoders.
 ``serve_artifact.export_artifact`` exports it, so the artifact computes
 what the live ``Predictor`` computes.
 
+On a card, ``predict`` replays a CUDA graph of ``serving`` (``Graphed``):
+each replica keeps one graph for each ``signature`` of the batch it is
+given. A thread's first call of a signature runs eagerly (it warms up
+cuDNN, cuBLAS and the kernels' library in that thread), its next call
+captures, and every later call copies its batch into the graph's static
+inputs, replays and clones the output. A static int8 Predictor stays
+eager while it calibrates. A replayed request launches the same kernels
+as an eager one, in one launch from the host; the kernels' launch
+counters move by what the capture recorded, and ``GRAPH_CAPTURES`` and
+``GRAPH_REPLAYS`` count the captures and replays.
+
 ``predict(frames, boxes=...)`` serves requests that come with a hand
 detector's boxes in place of centres (HANDS 2017's test protocol): the
 device finds each hand in its box and computes the crop integers from that
@@ -49,7 +60,8 @@ the JAX package's msgpack ``.ckpt`` (``train/checkpoint.py``, without jax).
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence
+import threading
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,12 +72,22 @@ from pixelwiseregression_tpu_torch.core.camera import recover_uvd
 from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, preprocess_batch
 from pixelwiseregression_tpu_torch.data.sources import SPECS, DatasetSpec
+from pixelwiseregression_tpu_torch.models import layers
 from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
 from pixelwiseregression_tpu_torch.models.layers import calibrating
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.ops import cuda_conv, cuda_softargmax
 from pixelwiseregression_tpu_torch.ops.localize import box_bounds, localize
 from pixelwiseregression_tpu_torch.serve_artifact import _build_batch, _device_batch
 from pixelwiseregression_tpu_torch.train.checkpoint import load_checkpoint
+
+# CUDA graphs of the serving function captured, and requests served by a replay
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+# the launch counters a serving forward moves: a capture launches nothing, and
+# each replay adds what its capture recorded
+_FORWARD_COUNTERS = ((cuda_softargmax, "LAUNCHES"), (cuda_conv, "LAUNCHES"),
+                     (layers, "INT_MM_CALLS"))
 
 # reference model_param key -> from_state_dict argument
 _MODEL_PARAM_ARGS = {"stage": "stages", "features": "features", "level": "level",
@@ -114,6 +136,79 @@ class ServingFunction(nn.Module):
         return recover_uvd(uvd, data["box_size"], data["com"], data["cube"])
 
 
+def signature(batch: Dict[str, torch.Tensor]) -> tuple:
+    """A batch's graph key: each field's name, shape and dtype."""
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]
+    output: torch.Tensor
+    launches: List[int]  # by _FORWARD_COUNTERS, what one replay launches
+
+
+class Graphed:
+    """A replica's serving function on a card, served by CUDA graphs: one for
+    each ``signature``, captured on the signature's second call in a thread
+    and replayed from then on. cuDNN's and cuBLAS's handles are made per
+    thread on first use, which a capture cannot do: so until the key's
+    graph exists, a thread's first call of the key runs eagerly. Calls on
+    one replica take turns under its lock: each queues its batch's copy into
+    the static inputs, the replay and the clone of the static output on the
+    caller's stream before the next call can, so the gather of the answers
+    needs no lock."""
+
+    def __init__(self, serving: ServingFunction, device: torch.device):
+        self.serving, self.device = serving, device
+        self.lock = threading.Lock()
+        self.thread = threading.local()  # .warm: the keys this thread ran eagerly
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        global GRAPH_REPLAYS
+        key = signature(batch)
+        warm = self.thread.__dict__.setdefault("warm", set())
+        with self.lock:
+            g = self.graphs.get(key)
+            if g is None:
+                if key not in warm:
+                    out = self.serving(batch)
+                    warm.add(key)
+                    return out
+                g = self.graphs[key] = self._capture(batch)
+            for k, v in g.inputs.items():
+                v.copy_(batch[k])
+            g.graph.replay()
+            out = g.output.clone()
+            for (mod, attr), n in zip(_FORWARD_COUNTERS, g.launches):
+                setattr(mod, attr, getattr(mod, attr) + n)
+            GRAPH_REPLAYS += 1
+        return out
+
+    def _capture(self, batch: Dict[str, torch.Tensor]) -> _Graph:
+        """Capture the forward on static inputs shaped as ``batch``'s, on a
+        side stream, with the static inputs and output in the graph's pool.
+        ``thread_local``: another thread's work meanwhile (its pageable
+        copies, its localisation, its gather) does not break the capture;
+        its launches would count in the capture's, which the lock keeps out
+        on this replica."""
+        global GRAPH_CAPTURES
+        before = [getattr(mod, attr) for mod, attr in _FORWARD_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
+                                  capture_error_mode="thread_local"):
+                inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+                output = self.serving(inputs)
+        launches = []
+        for (mod, attr), b in zip(_FORWARD_COUNTERS, before):
+            launches.append(getattr(mod, attr) - b)
+            setattr(mod, attr, b)
+        GRAPH_CAPTURES += 1
+        return _Graph(graph, inputs, output, launches)
+
+
 def _replica_devices(devices) -> List[torch.device]:
     """The data-parallel replicas' devices: ``devices`` as given, else every
     visible card (none raises)."""
@@ -142,6 +237,10 @@ class Predictor:
         self.data_parallel = replicas is not None
         self.replicas = replicas or [(device, ServingFunction(model, cfg))]
         self.serving = self.replicas[0][1]
+        # what serves each replica once no calibration is pending: on a card,
+        # its CUDA graphs
+        self.forwards = [Graphed(s, d) if torch.device(d).type == "cuda" else s
+                         for d, s in self.replicas]
         static = model.quant is not None and "static" in model.quant
         # predict() calls left that calibrate the static int8 scales
         self.calib_left = quant_calib_batches if static else 0
@@ -256,8 +355,9 @@ class Predictor:
         in it (``obs``) ``serve.build_batch`` (the host batch),
         ``serve.to_device`` (its copy to a replica), ``serve.localize`` (with
         boxes: the localisation's launches), ``serve.launch`` (the serving
-        function's launches, calibration included) and ``serve.wait`` (the
-        gather of the answers to the host).
+        function's launches, calibration included; on a card, the copy into
+        the graph's inputs, the replay and the clone) and ``serve.wait``
+        (the gather of the answers to the host).
         """
         if (coms is None) == (boxes is None):
             raise ValueError("predict takes exactly one of coms and boxes")
@@ -273,7 +373,7 @@ class Predictor:
             rows = self.batch_size // len(self.replicas)
             outs = []
             with torch.inference_mode():
-                for i, (d, serving) in enumerate(self.replicas):
+                for i, ((d, serving), forward) in enumerate(zip(self.replicas, self.forwards)):
                     with obs.span("serve.to_device"):
                         part = _device_batch({k: v[i * rows:(i + 1) * rows]
                                               for k, v in batch.items()}, d)
@@ -286,7 +386,9 @@ class Predictor:
                         if self.calib_left > 0:
                             with calibrating(serving.model):
                                 serving(part)
-                        out = serving(part)
+                            out = serving(part)
+                        else:
+                            out = forward(part)
                     if boxes is not None:
                         # one gather for the answers, the centres and the flags
                         out = torch.cat([out.to(torch.float64).flatten(1), com,

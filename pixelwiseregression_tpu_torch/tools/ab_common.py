@@ -38,6 +38,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from pixelwiseregression_tpu_torch import serve
 from pixelwiseregression_tpu_torch.cli.common import DECODERS
 from pixelwiseregression_tpu_torch.core.precision import tf32_off
 from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig
@@ -64,7 +65,10 @@ IMAGE = 128  # the JAX bench's crops; the label maps are half that
 NYU_FX, NYU_FY, NYU_H, NYU_W = 588.03, 587.07, 480, 640
 
 # every kernel launch counter of the port: name -> (module, attribute).
-# int_mm counts torch._int_mm calls (a library product, on either device)
+# int_mm counts torch._int_mm calls (a library product, on either device);
+# graph_captures and graph_replays, the Predictor's CUDA graphs of its
+# serving function captured and replayed (a replay also moves the counters
+# of the kernels it launches)
 COUNTERS = {
     "K1": (cuda_softargmax, "LAUNCHES"),
     "K2": (cuda_softargmax, "BWD_LAUNCHES"),
@@ -80,6 +84,8 @@ COUNTERS = {
     "norm_stats_apply": (ablate_pieces, "STATS_LAUNCHES"),
     "conv3x3": (cuda_conv, "LAUNCHES"),
     "int_mm": (layers, "INT_MM_CALLS"),
+    "graph_captures": (serve, "GRAPH_CAPTURES"),
+    "graph_replays": (serve, "GRAPH_REPLAYS"),
 }
 
 

@@ -10,7 +10,12 @@ through pinned memory, run_training through K1 and K2 and run_inference
 through K1; the localisation of requests from a detector's boxes card vs
 CPU, and such a request queued with no sync up to its gather; the heads'
 f32 3x3 conv (``torch.ops.pwr.conv3x3_f32``) against a float64 conv and
-cuDNN, its gradients against F.conv2d's, and its launches a forward.
+cuDNN, its gradients against F.conv2d's, and its launches a forward; the
+Predictor's CUDA graphs of its serving function: replayed answers equal to
+eager ones bit for bit, each request's launches and the replay's kernels
+in a trace, two clients racing through the capture, a replayed request
+with no sync, a dropped Predictor's graph freed, and the int8 Predictors
+capturing after their calibration.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -22,6 +27,7 @@ without jax (``tests/conftest.py`` imports jax; pass ``--noconftest`` there):
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -1561,3 +1567,216 @@ def test_full_width_f32_request_launches_the_conv_for_the_heads(device):
     got = pred.predict(raw["frame"], raw["com"])
     assert tconv.LAUNCHES == before + 12
     assert np.isfinite(got["uvd"]).all()
+
+
+# --------------------------------------------------------------------------- #
+# the Predictor's CUDA graphs of its serving function (serve.Graphed)
+# --------------------------------------------------------------------------- #
+
+
+def _graph_predictor(device, kind, features=128, level=4, **kw):
+    """A full-width f32 Predictor (batch 32) of ``kind``: ``nyu`` (centres),
+    ``hand17`` (boxes) or ``fullreg`` (NYU FullRegression), and its requests'
+    maker ``request(pred, seed, n=32)`` -> the answer to ``n`` frames."""
+    spec = SPECS["HAND17" if kind == "hand17" else "NYU"]
+    torch.manual_seed(21)
+    if kind == "fullreg":
+        from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
+        state = FullRegression(spec.joint_number, stage=2, label_size=64, features=features,
+                               level=level).state_dict()
+        kw["fullregression"] = True
+    else:
+        state = PixelwiseRegression(spec.joint_number, stage=2, features=features,
+                                    level=level).state_dict()
+    pred = Predictor.from_state_dict(state, "HAND17" if kind == "hand17" else "NYU", device,
+                                     batch_size=32, features=features, level=level, **kw)
+
+    def request(p, seed, n=32):
+        if kind == "hand17":
+            req = _box_request(n, seed)
+            return p.predict(req["frame"], boxes=req["box"])
+        raw = make_synthetic_raw_batch(n, spec.frame_h, spec.frame_w, spec.joint_number,
+                                       fx=spec.camera.fx, fy=spec.camera.fy,
+                                       cube=spec.cube_size, com_z=450.0, seed=seed)
+        return p.predict(raw["frame"], raw["com"])
+    return pred, request
+
+
+def _eager(pred):
+    """A Predictor over ``pred``'s model whose first call, eager, is the
+    only one it takes."""
+    return Predictor(pred.model, pred.spec, pred.cfg, pred.batch_size, pred.device)
+
+
+GRAPH_KINDS = {"nyu": (2, 12), "hand17": (2, 12), "fullreg": (0, 0)}  # K1, conv3x3 a request
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_KINDS))
+def test_replayed_requests_equal_eager_answers_bit_for_bit(device, kind):
+    """Five requests (sizes 32, 32, 7, 32, 32) to a full-width f32
+    Predictor: the first runs eagerly, the second captures one graph and
+    replays it, the rest replay; each answer equals an eager forward's
+    on the same request bit for bit; every request, the first included,
+    launches K1 ``stages`` times and the heads' conv 12 times (FullRegression:
+    neither)."""
+    from pixelwiseregression_tpu_torch import serve
+    pred, request = _graph_predictor(device, kind)
+    k1, convs = GRAPH_KINDS[kind]
+    for i, n in enumerate((32, 32, 7, 32, 32)):
+        counts = (tcuda.LAUNCHES, tconv.LAUNCHES, serve.GRAPH_CAPTURES, serve.GRAPH_REPLAYS)
+        got = request(pred, 2**31 + 50 + i, n)
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip((tcuda.LAUNCHES, tconv.LAUNCHES, serve.GRAPH_CAPTURES,
+                                        serve.GRAPH_REPLAYS), counts)]
+        assert moved == [k1, convs, int(i == 1), int(i >= 1)], (i, moved)
+        want = request(_eager(pred), 2**31 + 50 + i, n)
+        for key in ("uvd", "xyz", "com"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{key} request {i}")
+    assert len(pred.forwards[0].graphs) == 1
+
+
+def test_a_replayed_request_traces_its_kernels_by_name(device):
+    """torch.profiler on one replayed request of the full-width f32 NYU
+    Predictor: the trace holds K1 (``softargmax_fwd_kernel``) twice and the
+    heads' conv (``conv3x3_f32_kernel``) 12 times, and no conv3x3 nor K1
+    outside the replay."""
+    pred, request = _graph_predictor(device, "nyu")
+    for i in range(2):
+        request(pred, 60 + i)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        request(pred, 62)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("softargmax_fwd_kernel" in n for n in names) == 2, sorted(set(names))[:40]
+    assert sum("conv3x3_f32_kernel" in n for n in names) == 12, sorted(set(names))[:40]
+
+
+def test_two_clients_race_through_the_capture(device):
+    """Two threads, one sending box requests and one centre requests (one
+    key: the same fields), start together on a fresh HAND17 Predictor, so
+    that the eager calls, the capture and the replays interleave with the
+    other client's copies, localisation and gathers: one capture, and each
+    answer equals the eager forward's on that client's own request."""
+    from pixelwiseregression_tpu_torch import serve
+    spec = SPECS["HAND17"]
+    pred, _ = _graph_predictor(device, "hand17", features=32, level=2)
+    boxes = [_box_request(32, 2**31 + 70 + i) for i in range(4)]
+    centres = [make_synthetic_raw_batch(32, spec.frame_h, spec.frame_w, spec.joint_number,
+                                        fx=spec.camera.fx, fy=spec.camera.fy,
+                                        cube=spec.cube_size, com_z=450.0, seed=80 + i)
+               for i in range(4)]
+    calls = {"box": lambda p, r: p.predict(r["frame"], boxes=r["box"]),
+             "centre": lambda p, r: p.predict(r["frame"], r["com"])}
+    reqs = {"box": boxes, "centre": centres}
+    want = {c: [calls[c](_eager(pred), r)["uvd"] for r in reqs[c]] for c in calls}
+    got = {c: [] for c in calls}
+    errors = []
+    start = threading.Barrier(2)
+    captures = serve.GRAPH_CAPTURES
+
+    def client(c):
+        try:
+            start.wait(60)
+            for _ in range(2):
+                for r in reqs[c]:
+                    got[c].append(calls[c](pred, r)["uvd"])
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errors, errors
+    assert serve.GRAPH_CAPTURES - captures == 1
+    for c in calls:
+        for i, g in enumerate(got[c]):
+            np.testing.assert_array_equal(g, want[c][i % 4], err_msg=f"{c} request {i}")
+
+
+def test_a_replayed_request_queues_without_a_sync_up_to_the_gather(device, monkeypatch):
+    """The full-width f32 NYU Predictor, its graph captured: a request runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` from its batch's copy
+    to the card to the gather (the copy into the graph's inputs, the replay
+    and the clone of the output queue with no sync)."""
+    from pixelwiseregression_tpu_torch import serve
+    pred, request = _graph_predictor(device, "nyu")
+    want = [request(pred, 90 + i) for i in range(3)]
+    copy, span = serve._device_batch, serve.obs.span
+
+    def strict(batch, d):
+        out = copy(batch, d)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def loose(name):
+        if name == "serve.wait":
+            torch.cuda.set_sync_debug_mode("default")
+        return span(name)
+
+    monkeypatch.setattr(serve, "_device_batch", strict)
+    monkeypatch.setattr(serve.obs, "span", loose)
+    replays = serve.GRAPH_REPLAYS
+    try:
+        got = request(pred, 92)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert serve.GRAPH_REPLAYS - replays == 1
+    np.testing.assert_array_equal(got["uvd"], want[2]["uvd"])
+
+
+def test_a_dropped_predictor_frees_its_graphs(device):
+    """Dropping a Predictor whose graph was captured gives back the graph's
+    pool: the card's allocated bytes return to what they were before the
+    Predictor was built."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    pred, request = _graph_predictor(device, "nyu")
+    for i in range(3):
+        request(pred, 95 + i)
+    torch.cuda.synchronize()
+    assert len(pred.forwards[0].graphs) == 1
+    assert torch.cuda.memory_allocated(device) > before
+    del pred, request
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(device) == before
+
+
+@pytest.mark.parametrize("quant, calib", [("int8_static_all", 2), ("int8_all", 0)])
+def test_an_int8_predictor_captures_after_its_calibration(device, quant, calib):
+    """A bf16 batch-norm int8 Predictor (small widths): a static one
+    calibrates eagerly on its first ``calib`` requests and captures nothing
+    there; then, as any Predictor, one eager request, one capture and
+    replays, each answer equal to an eager forward's bit for bit and each
+    request counting its int8 products."""
+    from pixelwiseregression_tpu_torch import serve
+    from pixelwiseregression_tpu_torch.models import layers
+    spec = SPECS["NYU"]
+    torch.manual_seed(22)
+    state = PixelwiseRegression(spec.joint_number, stage=2, features=32, level=2,
+                                norm_method="batch").state_dict()
+    pred = Predictor.from_state_dict(state, "NYU", device, batch_size=8, stages=2, features=32,
+                                     level=2, norm_method="batch", dtype=torch.bfloat16,
+                                     quant=quant, quant_calib_batches=calib)
+    convs = sum(1 for m in pred.model.modules() if isinstance(m, layers.Conv) and m.quant)
+    raws = [make_synthetic_raw_batch(8, spec.frame_h, spec.frame_w, spec.joint_number,
+                                     fx=spec.camera.fx, fy=spec.camera.fy, cube=spec.cube_size,
+                                     com_z=450.0, seed=100 + i) for i in range(calib + 4)]
+    for i, raw in enumerate(raws):
+        counts = (layers.INT_MM_CALLS, serve.GRAPH_CAPTURES, serve.GRAPH_REPLAYS)
+        got = pred.predict(raw["frame"], raw["com"])["uvd"]
+        torch.cuda.synchronize()
+        moved = [a - b for a, b in zip((layers.INT_MM_CALLS, serve.GRAPH_CAPTURES,
+                                        serve.GRAPH_REPLAYS), counts)]
+        after = i - calib  # requests since the calibration
+        forwards = 2 if after < 0 else 1
+        assert moved == [forwards * convs, int(after == 1), int(after >= 1)], (i, moved)
+        if after >= 0:
+            want = _eager(pred).predict(raw["frame"], raw["com"])["uvd"]
+            np.testing.assert_array_equal(got, want, err_msg=f"request {i}")
