@@ -157,12 +157,18 @@ Before phase_tools, phase_conv3x3: the heads' f32 3x3 conv
 (csrc/conv3x3_f32.cu) at [128|32, 128, 64, 64] 128->128, its device time
 beside the f32 bound, cuDNN's f32 conv (TF32 off) as its heuristic picks it
 and in benchmark mode, and each one's largest error to a float64 conv.
+Then phase_v2v: V2V-PoseNet's voxeliser (csrc/voxelize.cu) at the V2V train
+cell's shape, [32, 480, 640] NYU frames to [32, 1, 88, 88, 88] grids, bit
+for bit against its plain version, its device time beside the bytes bound;
+and the V2V train step at full width for three steps, asserting one
+voxeliser launch and 32 frames a step.
 
 After the build it fails if ptxas reports a spill in K3's wgmma conv, in
 K6's xm_dots (the same loop), in K4's tail kernel, in the norm kernels
 (K3's norm_kernel, K5's nr_kernel), in the decoder's (K1, K2 and the
-dlabel kernel) or in the f32 3x3 conv's. With --conv it builds the kernels
-and runs phase_conv3x3 alone.
+dlabel kernel), in the f32 3x3 conv's or in the voxeliser's. With --conv
+it builds the kernels and runs phase_conv3x3 alone; with --v2v, phase_v2v
+alone.
 With --profile it builds the kernels and profiles the train step of 5.
 instead (phase_profile, through tools/profile_train.py; the JAX tools'
 synthetic raw frames): the breakdown that PERF.md's "Where the time goes"
@@ -179,7 +185,8 @@ the line before it lists the kernels with their launches on each path
 (serve, train, train_preprocessed, cli_train, cli_test, artifact, http, int8_serve,
 unit_engine, fused_engine, tools, bench, paired_serve, paired_tool,
 ddp_train a rank, fullreg_train, fullreg_test, fullreg_artifact, and
-scripts_<tool> for each script of phase_scripts that launched it),
+scripts_<tool> for each script of phase_scripts that launched it,
+v2v_train),
 their times, their plain versions' and a library call's, and their bounds:
 the larger of the bytes they must move over 3.35 TB/s and their operations
 over the peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
@@ -244,6 +251,9 @@ CONVS = 6 * STAGES
 # each counter set to 0 just before the path and read just after it;
 # phase_conv3x3's own calls are not among them
 CONV_LAUNCHES = {}
+# V2V-PoseNet's train cell: NYU frames [32, 480, 640] voxelised into
+# [32, 1, 88, 88, 88] grids, at full width (J 14), three steps
+V2V_BATCH, V2V_SIDE, V2V_STEPS = 32, 88, 3
 ENGINE_BATCH = 64   # the engines end to end
 FEATURES, LEVEL = 128, 4
 # K3 vs its plain version, bf16: at most this many bf16 ulps of the
@@ -1535,7 +1545,7 @@ def phase_fullreg(cs, device, smi_line, data, work):
         cs.LAUNCHES = cs.BWD_LAUNCHES = cs.BWD_KERNEL_LAUNCHES = cuda_conv.LAUNCHES = 0
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            best_epoch, best_err = run_training(args, "MSRA", fullregression=True, subject=0)
+            best_epoch, best_err = run_training(args, "MSRA", family="fullregression", subject=0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         train = {"K1": cs.LAUNCHES, "K2": cs.BWD_LAUNCHES}
@@ -2094,6 +2104,104 @@ def phase_conv3x3(device, smi_line):
         del x, ref
         _free()
     return rows
+
+
+def phase_v2v(device, smi_line):
+    """V2V-PoseNet's voxeliser (``csrc/voxelize.cu`` through
+    ``torch.ops.pwr.voxelize``) at the V2V train cell's shape, [V2V_BATCH,
+    480, 640] NYU frames to [V2V_BATCH, 1, 88, 88, 88] grids under the
+    paper's augmentation: its grids equal ``voxelize_plain``'s, on the CPU
+    and on the card, from the same rows, bit for bit, and two calls equal;
+    its kernel's device time a launch (torch.profiler) beside the bytes
+    bound (frames read, rows of per-sample numbers read, grids written); a
+    call of the operator and of the plain version by CUDA events, in turns.
+    Then ``make_train_step_v2v`` at full width (``V2VPoseNet(J)``, RMSprop,
+    TF32 off) for V2V_STEPS steps on distinct batches and draws, the two
+    voxel counters set to 0 just before: asserted 1 launch and V2V_BATCH
+    frames a step, the first step's grid as the model received it equal to
+    the plain version's on the CPU, every loss finite. Returns the kernel's
+    row."""
+    from pixelwiseregression_tpu_torch.core.precision import tf32_off
+    from pixelwiseregression_tpu_torch.data.loader import to_device
+    from pixelwiseregression_tpu_torch.data.sources import SPECS
+    from pixelwiseregression_tpu_torch.models.v2v import V2VPoseNet
+    from pixelwiseregression_tpu_torch.ops import voxel
+    from pixelwiseregression_tpu_torch.train.loop import create_train_state, make_train_step_v2v
+
+    tf32_off()
+    cam = SPECS["NYU"].camera
+    cfg = voxel.VoxelConfig(fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv,
+                            side=V2V_SIDE)
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    batches = [_raw_batch(device, V2V_BATCH, SEED + 90 + i) for i in range(V2V_STEPS)]
+    draws = [voxel.draw_augmentation(V2V_BATCH, gen, device, cfg) for _ in range(V2V_STEPS)]
+    frame = batches[0]["frame"].to(torch.float32).contiguous()
+    coef = voxel.coefficients(batches[0]["com"], draws[0], cfg)
+    before = (voxel.LAUNCHES, voxel.VOXELIZED)
+    grid, grid2 = voxel.voxelize(frame, coef, V2V_SIDE), voxel.voxelize(frame, coef, V2V_SIDE)
+    assert (voxel.LAUNCHES - before[0], voxel.VOXELIZED - before[1]) == (2, 2 * V2V_BATCH)
+    assert torch.equal(grid, grid2), "two calls of the voxeliser differ"
+    plain_cpu = voxel.voxelize_plain(frame.cpu(), coef.cpu(), V2V_SIDE)
+    assert torch.equal(grid.cpu(), plain_cpu), "the voxeliser differs from the plain version (CPU)"
+    assert torch.equal(grid, voxel.voxelize_plain(frame, coef, V2V_SIDE)), \
+        "the voxeliser differs from the plain version (card)"
+    occupied = int(grid.sum())
+    assert occupied > 100 * V2V_BATCH, occupied
+    del grid2, plain_cpu
+
+    def kernel():
+        return voxel.voxelize(frame, coef, V2V_SIDE)
+
+    def plain():
+        return voxel.voxelize_plain(frame, coef, V2V_SIDE)
+
+    by = _device_time_by_kernel(kernel)
+    device_ms = next(us / n for k, n, us in by if "voxelize_kernel" in k) / 1e3
+    (call_ms, _), (plain_ms, _) = _turns([kernel, plain], runs=5, iters=10)
+    b, h, w = frame.shape
+    nbytes = 4 * (b * h * w + b * voxel.COEFS + b * V2V_SIDE ** 3)
+    bound_ms, bound_by = _bound(0, nbytes, "f32")
+    print(f"voxelize [{b}, {h}, {w}] -> [{b}, 1, {V2V_SIDE}^3]: bit for bit with the plain "
+          f"version, {occupied} voxels occupied; kernel {device_ms:.5f} ms device, bound "
+          f"{bound_ms:.5f} ({bound_by}; {100 * bound_ms / device_ms:.1f}% of it); a call by CUDA "
+          f"events, in turns: the operator {call_ms:.5f} ms, the plain version {plain_ms:.5f}; "
+          f"{smi_line}", flush=True)
+    del grid
+    _free()
+
+    torch.manual_seed(SEED + 91)
+    net = V2VPoseNet(J, V2V_SIDE).to(device)
+    state = create_train_state(net, opt="rmsprop", lr=2.5e-4, lr_decay=1.0)
+    step = make_train_step_v2v(cfg)
+    seen = []
+    hook = net.register_forward_pre_hook(lambda mod, args: seen.append(args[0]) if not seen
+                                         else None)
+    host = [{k: v.cpu().numpy() for k, v in bt.items()} for bt in batches]
+    del batches
+    losses = []
+    voxel.LAUNCHES = voxel.VOXELIZED = 0
+    t = time.perf_counter()
+    for i in range(V2V_STEPS):
+        out = step(state, to_device(host[i], device), draws=draws[i])
+        losses.append(float(out["loss"]))
+    step_ms = (time.perf_counter() - t) / V2V_STEPS * 1e3
+    launches, frames = voxel.LAUNCHES, voxel.VOXELIZED
+    hook.remove()
+    assert (launches, frames) == (V2V_STEPS, V2V_STEPS * V2V_BATCH), (launches, frames)
+    assert all(math.isfinite(v) for v in losses), losses
+    first = voxel.coefficients(torch.from_numpy(host[0]["com"]).to(device), draws[0], cfg)
+    assert torch.equal(seen[0].cpu(), voxel.voxelize_plain(
+        torch.from_numpy(host[0]["frame"]).to(torch.float32), first.cpu(), V2V_SIDE)), \
+        "the train step's grid differs from the plain version"
+    print(f"V2V train b{V2V_BATCH} J={J} {V2V_SIDE}^3 f32 rmsprop: {V2V_STEPS} steps, voxelize "
+          f"launches {launches}, frames {frames}, losses {[f'{v:.6g}' for v in losses]}, "
+          f"{step_ms:.1f} ms a step (the first included); peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB", flush=True)
+    del state, step, net, seen
+    _free()
+    return {"launches": launches, "frames": frames, "device_ms": device_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / device_ms, "shape": [b, h, w], "occupied": occupied}
 
 
 def _host_us(fn, calls=10, runs=7):
@@ -3098,9 +3206,10 @@ def _check_no_spill(log, kernel):
 
 def main() -> int:
     args = sys.argv[1:]
-    if not (args in ([], ["--profile"], ["--conv"])
+    if not (args in ([], ["--profile"], ["--conv"], ["--v2v"])
             or (args[:1] == ["--decoder"] and len(args) <= 2)):
-        print("usage: chip_smoke.py [--profile | --conv | --decoder [DIR]]", file=sys.stderr)
+        print("usage: chip_smoke.py [--profile | --conv | --v2v | --decoder [DIR]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -3127,10 +3236,13 @@ def main() -> int:
             print("ptxas:", line.strip())
     for kernel in ("conv_wgmma_kernel", "xm_dots_kernel", "tail_kernel", "norm_kernel", "nr_kernel",
                    "softargmax_fwd_kernel", "softargmax_bwd_kernel", "dlabel_kernel",
-                   "conv3x3_f32_kernel"):
+                   "conv3x3_f32_kernel", "voxelize_kernel"):
         _check_no_spill(log, kernel)
     if args == ["--conv"]:
         phase_conv3x3(device, smi_line)
+        return 0
+    if args == ["--v2v"]:
+        phase_v2v(device, smi_line)
         return 0
     if args[:1] == ["--decoder"]:
         decoder_ab(args[1] if len(args) == 2 else None)
@@ -3179,6 +3291,7 @@ def main() -> int:
     pieces = phase_ablate(device)
     norm_shapes = phase_norm_shapes(device)
     conv = phase_conv3x3(device, smi_line)
+    v2v = phase_v2v(device, smi_line)
     tool_launches = phase_tools()
     bench_launches = phase_bench()
 
@@ -3337,6 +3450,19 @@ def main() -> int:
                    "128 channels, an 8x8 register tile a thread; chunks of 8 input channels "
                    "(slab with halo, weights [72][128]) by bulk copies on mbarriers, two stages; "
                    "nine taps from shared memory a load"},
+        {"name": "voxelize", "route": "cuda", "source": source.format("voxelize"),
+         "replaces": None, "launches": v2v["launches"],
+         "launches_by_path": {"v2v_train": v2v["launches"]},
+         "frames_by_path": {"v2v_train": v2v["frames"]}, "max_abs_err": 0.0,
+         "ms": v2v["device_ms"], **{k: v2v[k] for k in ("device_ms", "call_ms", "bound_ms",
+                                                           "bound_by", "bound_share")},
+         "plain_ms": v2v["plain_ms"], "library_ms": None, "shape": v2v["shape"], "dtype": "f32",
+         "unit": "ms is the kernel's device time a launch (torch.profiler); call_ms and plain_ms "
+                 "a call of the operator and of voxelize_plain's torch ops by CUDA events, in "
+                 "turns; max_abs_err 0: the grids equal the plain version's bit for bit",
+         "design": "a block of 512 threads a slab of 22 z-planes of one sample, the slab's "
+                   "occupancy as bits in shared memory, every pixel's voxel by __f*_rn steps "
+                   "in the plain version's order, the grid written once, whole"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,4 +10,4 @@ from pixelwiseregression_tpu_torch.cli.train_main import run_training
 
 if __name__ == "__main__":
     args = make_train_parser(suffix_default="full_regression", fullregression=True).parse_args()
-    run_training(args, args.dataset, fullregression=True)
+    run_training(args, args.dataset, family="fullregression")

@@ -1,6 +1,6 @@
-"""Training entry point shared by ``cli/train.py``, ``cli/train_msra.py`` and
-``cli/train_fullregression.py`` (mirrors
-``pixelwiseregression_tpu/cli/train_main.py``).
+"""Training entry point shared by ``cli/train.py``, ``cli/train_msra.py``,
+``cli/train_fullregression.py`` and ``cli/train_v2v.py`` (mirrors
+``pixelwiseregression_tpu/cli/train_main.py``, which has no V2V-PoseNet).
 
 The loop is the JAX package's: raw host batches from the threaded
 ``Loader`` go to the device (pinned memory, non-blocking copies), where one
@@ -12,9 +12,13 @@ mean-mm) is copied to ``<log_name>_final.pt``. TensorBoard scalars and
 images go through tensorboardX where it is installed (a null writer
 otherwise; ``PWR_TB_IMAGES=0`` skips the images).
 
-``fullregression=True`` trains the FullRegression family: its model, the
-uvd-only steps (``make_train_step_fullreg``), the val loss ``sum`` of the
-stage losses and images without maps.
+``family`` names the model trained: ``"pixelwise"`` (the default),
+``"fullregression"`` (the FullRegression family: its model, the uvd-only
+steps of ``make_train_step_fullreg``, the val loss ``sum`` of the stage
+losses and images without maps) or ``"v2v"`` (V2V-PoseNet,
+``cli/train_v2v.py``: the frames voxelised on the device at
+``VoxelConfig``'s published cube and sigma, the heatmap loss, the val
+error of the argmax decode, no images).
 
 Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` and ``RANK`` set)
 each process joins the process group (``parallel/mesh.py``: NCCL on the
@@ -46,6 +50,8 @@ from pixelwiseregression_tpu_torch.data.preprocess import PreprocessConfig, prep
 from pixelwiseregression_tpu_torch.data.sources import get_source
 from pixelwiseregression_tpu_torch.models.fullregression import FullRegression
 from pixelwiseregression_tpu_torch.models.pixelwise import PixelwiseRegression
+from pixelwiseregression_tpu_torch.models.v2v import V2VPoseNet
+from pixelwiseregression_tpu_torch.ops.voxel import VoxelConfig
 from pixelwiseregression_tpu_torch.parallel import mesh
 from pixelwiseregression_tpu_torch.train.checkpoint import (
     alias_final,
@@ -58,8 +64,10 @@ from pixelwiseregression_tpu_torch.train.loop import (
     create_train_state,
     make_eval_step,
     make_eval_step_fullreg,
+    make_eval_step_v2v,
     make_train_step,
     make_train_step_fullreg,
+    make_train_step_v2v,
     model_inputs,
 )
 from pixelwiseregression_tpu_torch.utils.seeding import setup_seed
@@ -143,23 +151,29 @@ def _val_batches(loader, n: int):
         yield dict(last, weight=np.zeros_like(last["weight"]), count=np.int32(0))
 
 
-def run_training(args, dataset_name: str, fullregression: bool = False, subject=None):
+FAMILIES = ("pixelwise", "fullregression", "v2v")
+
+
+def run_training(args, dataset_name: str, family: str = "pixelwise", subject=None):
     """Train on ``dataset_name`` (``subject``: MSRA's held-out subject) as the
     flags say; returns ``(best_epoch, best_error)`` (the last stage's val
     mean-mm at the best epoch). Under torchrun, joins the process group
     for the run."""
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r}, expected one of {FAMILIES}")
     own_group = mesh.launched() and not mesh.active()
     device = resolve_device(args)
     if own_group:
         device = mesh.init(device.type)
     try:
-        return _run_training(args, dataset_name, fullregression, subject, device)
+        return _run_training(args, dataset_name, family, subject, device)
     finally:
         if own_group:
             mesh.shutdown()
 
 
-def _run_training(args, dataset_name, fullregression, subject, device):
+def _run_training(args, dataset_name, family, subject, device):
+    fullregression, v2v = family == "fullregression", family == "v2v"
     world, main_rank = mesh.world_size(), mesh.rank() == 0
     say = print if main_rank else (lambda *a, **k: None)
     if main_rank:
@@ -209,8 +223,19 @@ def _run_training(args, dataset_name, fullregression, subject, device):
         + (f", {world} processes of batch {local_bs} "
            f"({torch.distributed.get_backend()})" if mesh.active() else ""))
 
-    model_kw = model_kwargs_from_args(args, joints, fullregression=fullregression)
-    model = (FullRegression if fullregression else PixelwiseRegression)(**model_kw).to(device)
+    if v2v:
+        model_kw = dict(joints=joints, in_size=args.in_size)
+        model = V2VPoseNet(**model_kw).to(device)
+        vcfg = VoxelConfig(
+            fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv, side=args.in_size,
+            rotation=40.0 if args.using_rotation else 0.0,
+            scale=(0.8, 1.2) if args.using_scale else (1.0, 1.0),
+            shift=8.0 if args.using_shift else 0.0)
+        model_param = dict(model_kw, family="v2v", cube=vcfg.cube, dtype="float32")
+    else:
+        model_kw = model_kwargs_from_args(args, joints, fullregression=fullregression)
+        model = (FullRegression if fullregression else PixelwiseRegression)(**model_kw).to(device)
+        model_param = make_model_param(model_kw, args.label_size)
     mesh.broadcast_module(model)
 
     # a floor of 1 so that the schedule never divides by zero
@@ -225,7 +250,11 @@ def _run_training(args, dataset_name, fullregression, subject, device):
         restore_train_state(state, load_checkpoint(args.resume))
         say(f"resumed from {args.resume} at step {state.step}")
 
-    if fullregression:
+    if v2v:
+        loss_cfg = None
+        train_step = make_train_step_v2v(vcfg)
+        eval_step = make_eval_step_v2v(vcfg, cam)
+    elif fullregression:
         loss_cfg = None
         train_step = make_train_step_fullreg(pp_train)
         eval_step = make_eval_step_fullreg(pp_val, cam)
@@ -242,7 +271,6 @@ def _run_training(args, dataset_name, fullregression, subject, device):
         log_name = f"{dataset_name}_{args.suffix}_subject{subject}"
     model_name = log_name + "_{}.pt"
     writer = _writer(log_name) if main_rank else _NullWriter()
-    model_param = make_model_param(model_kw, args.label_size)
 
     best_epoch, best_error = 0, float("inf")
     step_count = 0
@@ -301,7 +329,7 @@ def _run_training(args, dataset_name, fullregression, subject, device):
             f"val mean-mm {np.array2string(val_errs, precision=3)}  ({fps:.1f} samples/s)")
 
         # PWR_TB_IMAGES=0 skips the images (one more forward an epoch)
-        if (viz_batch is not None and not isinstance(writer, _NullWriter)
+        if (viz_batch is not None and not v2v and not isinstance(writer, _NullWriter)
                 and os.environ.get("PWR_TB_IMAGES", "1") != "0"):
             try:
                 _log_images(writer, epoch, state.model, viz_batch, pp_val, trainset.config,
@@ -311,7 +339,7 @@ def _run_training(args, dataset_name, fullregression, subject, device):
 
         # ---- tensorboard scalars ----
         n_stages = stage_l.shape[0]
-        if fullregression:
+        if fullregression or v2v:
             val_total = float(np.sum(val_losses))
         else:
             val_total = float(sum(
@@ -320,7 +348,8 @@ def _run_training(args, dataset_name, fullregression, subject, device):
                 for i in range(n_stages)))
         writer.add_scalars("loss", {"train": train_loss, "val": val_total}, epoch)
         for i in range(n_stages):
-            for j, name in enumerate(() if fullregression else ("heatmap", "depthmap", "uvd")):
+            for j, name in enumerate(() if fullregression or v2v
+                                     else ("heatmap", "depthmap", "uvd")):
                 writer.add_scalars(f"stage{i}_{name}_loss",
                                    {"train": float(stage_l[i][j]), "val": float(val_losses[i][j])},
                                    epoch)

@@ -51,6 +51,7 @@ from pixelwiseregression_tpu_torch.ops import (
     cuda_hourglass,
     cuda_normrelu,
     cuda_softargmax,
+    voxel,
 )
 from pixelwiseregression_tpu_torch.train.loop import LossConfig, create_train_state, make_train_step
 from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
@@ -68,7 +69,8 @@ NYU_FX, NYU_FY, NYU_H, NYU_W = 588.03, 587.07, 480, 640
 # int_mm counts torch._int_mm calls (a library product, on either device);
 # graph_captures and graph_replays, the Predictor's CUDA graphs of its
 # serving function captured and replayed (a replay also moves the counters
-# of the kernels it launches)
+# of the kernels it launches); voxelize and voxelized, the voxeliser's
+# launches and the frames it voxelised
 COUNTERS = {
     "K1": (cuda_softargmax, "LAUNCHES"),
     "K2": (cuda_softargmax, "BWD_LAUNCHES"),
@@ -86,6 +88,8 @@ COUNTERS = {
     "int_mm": (layers, "INT_MM_CALLS"),
     "graph_captures": (serve, "GRAPH_CAPTURES"),
     "graph_replays": (serve, "GRAPH_REPLAYS"),
+    "voxelize": (voxel, "LAUNCHES"),
+    "voxelized": (voxel, "VOXELIZED"),
 }
 
 

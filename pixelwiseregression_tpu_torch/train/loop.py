@@ -24,6 +24,10 @@ layout. The eval step computes the mean 3-D joint error on the device and
 returns only small tensors. ``make_train_step_fullreg`` and
 ``make_eval_step_fullreg`` are the FullRegression family's (the JAX
 package's ``cli/train_main.py:354-435``): the uvd loss alone.
+``make_train_step_v2v`` and ``make_eval_step_v2v`` are V2V-PoseNet's
+(``models/v2v.py``, no JAX counterpart): the raw frames voxelised on the
+device (``ops/voxel.py``), the mean squared error to the joints' 3D
+Gaussians, RMSprop.
 
 In a ``torch.distributed`` run (``parallel/mesh.py``) each rank passes its
 slice of the global batch, and every step computes what the JAX step
@@ -50,6 +54,7 @@ from pixelwiseregression_tpu_torch.data.preprocess import (
     draw_augmentation,
     preprocess_batch,
 )
+from pixelwiseregression_tpu_torch.ops import voxel
 from pixelwiseregression_tpu_torch.parallel import mesh
 
 
@@ -74,14 +79,16 @@ class TrainState:
 def make_optimizer(params, opt: str = "adam", lr: float = 1e-3, beta1: float = 0.9,
                    beta2: float = 0.999, weight_decay: float = 0.0, lr_decay: float = 0.2,
                    decay_epoch: float = 15, steps_per_epoch: int = 1):
-    """AdamW / SGD with the reference's StepLR as a per-step ``LambdaLR``;
-    returns ``(optimizer, scheduler)``. Call ``scheduler.step()`` after each
-    ``optimizer.step()``.
+    """AdamW / SGD / RMSprop with the reference's StepLR as a per-step
+    ``LambdaLR``; returns ``(optimizer, scheduler)``. Call
+    ``scheduler.step()`` after each ``optimizer.step()``.
 
     ``weight_decay`` is passed explicitly: ``torch.optim.AdamW`` would
     default to 0.01, the JAX package to 0. SGD has momentum ``beta1`` and
     adds ``weight_decay * param`` to the gradient before it, as the JAX
-    package's ``add_decayed_weights`` chain does.
+    package's ``add_decayed_weights`` chain does. RMSprop (V2V-PoseNet's)
+    takes alpha 0.99, eps 1e-8 and no momentum, torch's defaults, which the
+    V2V-PoseNet reimplementation takes; ``beta1`` and ``beta2`` are not read.
     """
     params = list(params)
     if opt == "adam":
@@ -89,6 +96,9 @@ def make_optimizer(params, opt: str = "adam", lr: float = 1e-3, beta1: float = 0
                                       weight_decay=weight_decay)
     elif opt == "sgd":
         optimizer = torch.optim.SGD(params, lr=lr, momentum=beta1, weight_decay=weight_decay)
+    elif opt == "rmsprop":
+        optimizer = torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8,
+                                        weight_decay=weight_decay, momentum=0.0)
     else:
         raise ValueError(f"unknown optimizer {opt}")
 
@@ -417,6 +427,106 @@ def make_eval_step_fullreg(preprocess_cfg: PreprocessConfig, camera: Camera):
             per_stage = uvd_losses(results, data["uvd"], weight)
             out = _global(sum(per_stage), _padded(per_stage),
                           _error_sums(results, data, camera, weight), torch.sum(weight))
+        return dict(zip(("loss", "stage_losses", "err_sum_mm", "count"), out))
+
+    return step
+
+
+def heatmap_loss(heatmaps, target, sample_weight=None):
+    """V2V-PoseNet's loss: the mean squared error ``mean_{B,J,voxels} (h -
+    h*)^2`` over the weighted samples (over the global batch in a
+    distributed run)."""
+    b, joints = target.shape[:2]
+    sw, denom = _weights(sample_weight, b, joints, target.device)
+    per = torch.sum((heatmaps.to(torch.float32) - target) ** 2, dim=(2, 3, 4))
+    return torch.sum(per * sw) / (denom * target[0, 0].numel())
+
+
+def _v2v_draws(cfg: voxel.VoxelConfig, batch, generator, draws):
+    """``draws`` as given, or the global batch's from ``generator`` sliced
+    to this rank."""
+    if draws is not None:
+        return draws
+    if generator is None:
+        raise ValueError("the V2V step needs draws or a generator")
+    b = batch["com"].shape[0]
+    full = voxel.draw_augmentation(b * mesh.world_size(), generator, batch["com"].device, cfg)
+    return {k: mesh.local_slice(v) for k, v in full.items()}
+
+
+def v2v_inputs(cfg: voxel.VoxelConfig, batch, draws):
+    """The grids and the targets of a raw batch (``frame``, ``com``,
+    ``joints``) under ``draws``, and the rows of ``voxel.coefficients``;
+    the spans ``train.voxelize`` and ``train.targets``."""
+    with obs.span("train.voxelize"):
+        coef = voxel.coefficients(batch["com"], draws, cfg)
+        grid = voxel.voxelize(batch["frame"], coef, cfg.side)
+    with obs.span("train.targets"):
+        target = voxel.targets(batch["joints"], coef, cfg.out_side, cfg.sigma)
+    return grid, target, coef
+
+
+def make_train_step_v2v(cfg: voxel.VoxelConfig):
+    """V2V-PoseNet's train step ``step(state, batch, generator=None,
+    draws=None, events=None)``, with ``make_train_step_fullreg``'s contract:
+    the raw batch (``frame``, ``com``, ``joints``; an optional ``weight``)
+    voxelised with the augmentation ``draws`` (``voxel.draw_augmentation``'s,
+    or drawn from ``generator``), the targets made, both on the device
+    (boundaries 0 -> 1); the forward in train mode and ``heatmap_loss`` (1
+    -> 2); backward, optimizer and schedule (2 -> 4). Returns ``{"loss",
+    "stage_losses" [1, 3]}`` with the loss in the last column."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None,
+             events: Optional[Sequence[torch.cuda.Event]] = None):
+        with obs.span("train.step"), _Boundaries(events) as mark:
+            mark(0)
+            with torch.no_grad():
+                grid, target, _ = v2v_inputs(cfg, batch, _v2v_draws(cfg, batch, generator,
+                                                                    draws))
+            mark(1)
+            model = state.model.train()
+            loss = heatmap_loss(model(grid), target, batch.get("weight"))
+            mark(2)
+            _update(state, loss, mark)
+            loss, stage = _global(loss, _padded([loss]))
+            return {"loss": loss.detach(), "stage_losses": stage}
+
+    return step
+
+
+def decode_v2v(heatmaps: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """The paper's decode: each joint's argmax voxel ``[B, J, S, S, S]`` ->
+    world xyz (mm) ``[B, J, 3]``."""
+    b, j, s = heatmaps.shape[:3]
+    flat = torch.argmax(heatmaps.reshape(b, j, -1), dim=-1)
+    index = torch.stack([flat % s, flat // s % s, flat // (s * s)], dim=-1)
+    return voxel.world_from_grid(index, coef)
+
+
+def make_eval_step_v2v(cfg: voxel.VoxelConfig, camera: Camera):
+    """V2V-PoseNet's eval step ``step(state, batch)``: no augmentation, the
+    model in eval mode (BatchNorm's running statistics), the loss and the
+    mean 3-D joint error of the argmax decode (``decode_v2v``), weighted by
+    ``weight``; ``make_eval_step``'s dict with one stage."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model.eval()
+        with torch.no_grad():
+            b = batch["com"].shape[0]
+            draws = voxel.no_augmentation(b, batch["frame"].device)
+            grid, target, coef = v2v_inputs(cfg, batch, draws)
+            heatmaps = model(grid)
+            weight = batch.get("weight")
+            weight = (torch.ones(b, device=grid.device) if weight is None
+                      else weight.to(torch.float32))
+            loss = heatmap_loss(heatmaps, target, weight)
+            xyz = decode_v2v(heatmaps, coef)
+            err = torch.sqrt(torch.sum((xyz - camera.uvd2xyz(batch["joints"].to(torch.float32)))
+                                       ** 2, dim=-1))
+            errs = torch.sum(torch.mean(err, dim=-1) * weight)[None]
+            out = _global(loss, _padded([loss]), errs, torch.sum(weight))
         return dict(zip(("loss", "stage_losses", "err_sum_mm", "count"), out))
 
     return step

@@ -230,13 +230,14 @@ def test_refused_flags():
 
 def test_every_launch_counter_is_in_the_registry():
     """Each module-level ``*LAUNCHES`` and ``*_CALLS`` counter of ``ops/``
-    and ``models/layers.py``, and each ``GRAPH_*`` counter of ``serve.py``,
-    is one of ``ab_common.COUNTERS``, and each of those is one of them: a
-    bench line's launch check sees every kernel and every graph replay."""
+    and ``models/layers.py``, the voxeliser's ``VOXELIZED`` and each
+    ``GRAPH_*`` counter of ``serve.py``, is one of ``ab_common.COUNTERS``,
+    and each of those is one of them: a bench line's launch check sees
+    every kernel and every graph replay."""
     mods = [importlib.import_module(m.name)
             for m in pkgutil.iter_modules(ops.__path__, ops.__name__ + ".")] + [layers, serve]
     found = {(mod.__name__, name) for mod in mods for name, v in vars(mod).items()
-             if re.fullmatch(r"[A-Z0-9_]*(LAUNCHES|_CALLS)|GRAPH_[A-Z]+", name)
+             if re.fullmatch(r"[A-Z0-9_]*(LAUNCHES|_CALLS)|GRAPH_[A-Z]+|VOXELIZED", name)
              and isinstance(v, int)}
     registry = {(mod.__name__, name) for mod, name in ab_common.COUNTERS.values()}
     assert found == registry, (sorted(found - registry), sorted(registry - found))

@@ -15,7 +15,10 @@ Predictor's CUDA graphs of its serving function: replayed answers equal to
 eager ones bit for bit, each request's launches and the replay's kernels
 in a trace, two clients racing through the capture, a replayed request
 with no sync, a dropped Predictor's graph freed, and the int8 Predictors
-capturing after their calibration.
+capturing after their calibration; V2V-PoseNet's voxeliser
+(``torch.ops.pwr.voxelize``) against its plain version bit for bit, and its
+train step launching it once with no sync or pageable copy in its
+preprocess.
 
 Every test is marked ``cuda`` and skips where no CUDA card is visible. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -42,6 +45,7 @@ from pixelwiseregression_tpu_torch.data.preprocess import (PreprocessConfig, dra
 from pixelwiseregression_tpu_torch.data.sources import SPECS, get_source
 from pixelwiseregression_tpu_torch.models.infer_engine import make_fused_apply, make_unit_fused_apply
 from pixelwiseregression_tpu_torch.models.pixelwise import Hourglass, PixelwiseRegression
+from pixelwiseregression_tpu_torch.models.v2v import V2VPoseNet
 from pixelwiseregression_tpu_torch.ops import ablate_pieces as tap
 from pixelwiseregression_tpu_torch.ops import cuda_conv as tconv
 from pixelwiseregression_tpu_torch.ops import cuda_fused as tfused
@@ -51,9 +55,11 @@ from pixelwiseregression_tpu_torch.ops import cuda_softargmax as tcuda
 from pixelwiseregression_tpu_torch.ops import fused_normrelu as tnr
 from pixelwiseregression_tpu_torch.ops import image as timage
 from pixelwiseregression_tpu_torch.ops import softargmax as tsa
+from pixelwiseregression_tpu_torch.ops import voxel as tvox
 from pixelwiseregression_tpu_torch.serve import Predictor
 from pixelwiseregression_tpu_torch.train.loop import (LossConfig, create_train_state, make_train_step,
-                                                      model_inputs)
+                                                      make_train_step_v2v, model_inputs,
+                                                      v2v_inputs)
 from pixelwiseregression_tpu_torch.utils.synth import make_synthetic_raw_batch
 
 pytestmark = pytest.mark.cuda
@@ -1780,3 +1786,92 @@ def test_an_int8_predictor_captures_after_its_calibration(device, quant, calib):
         if after >= 0:
             want = _eager(pred).predict(raw["frame"], raw["com"])["uvd"]
             np.testing.assert_array_equal(got, want, err_msg=f"request {i}")
+
+
+# --------------------------------------------------------------------------- #
+# V2V-PoseNet's voxeliser
+# --------------------------------------------------------------------------- #
+
+
+def _v2v_batch(device, b=32, seed=21, side=88):
+    """A b32 NYU batch of raw 480x640 frames on the card, V2V's draws and
+    its configuration."""
+    spec = SPECS["NYU"]
+    cam = spec.camera
+    raw = make_synthetic_raw_batch(b, 480, 640, 14, fx=cam.fx, fy=cam.fy, cube=250.0,
+                                   com_z=600.0, seed=seed)
+    cfg = tvox.VoxelConfig(fx=cam.fx, fy=cam.fy, halfu=cam.halfu, halfv=cam.halfv, side=side)
+    draws = tvox.draw_augmentation(b, torch.Generator(device=device).manual_seed(seed), device,
+                                   cfg)
+    return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}, draws, cfg
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+@pytest.mark.parametrize("side", [88, 24])
+def test_voxelize_kernel_equals_the_plain_version_bit_for_bit(device, seed, side):
+    """The kernel against the plain version on the CPU from the same rows,
+    and against the plain version's torch ops on the card (the benchmark
+    reference's route) from rows made on the card; frames with a third of
+    their pixels moved to the cube's faces and the grid's borders."""
+    batch, draws, cfg = _v2v_batch(device, seed=seed, side=side)
+    frame = batch["frame"].clone()
+    frame[:, ::3] = torch.where(frame[:, ::3] > 0, batch["com"][:, 2, None, None] + 124.999,
+                                frame[:, ::3])
+    frame[:, 1::7] = torch.where(frame[:, 1::7] > 0, batch["com"][:, 2, None, None] - 125.0,
+                                 frame[:, 1::7])
+    coef = tvox.coefficients(batch["com"], draws, cfg)
+    before = (tvox.LAUNCHES, tvox.VOXELIZED)
+    grid = tvox.voxelize(frame, coef, side)
+    assert (tvox.LAUNCHES, tvox.VOXELIZED) == (before[0] + 1, before[1] + 32)
+    assert torch.equal(grid.cpu(), tvox.voxelize(frame.cpu(), coef.cpu(), side))
+    assert torch.equal(grid, tvox.voxelize_plain(frame, coef, side))
+    assert int(grid.sum()) > 32 * 100
+    assert torch.equal(tvox.voxelize(frame, coef, side), grid)
+
+
+def test_voxelize_wrapper_rejects_what_the_kernel_does_not_take(device):
+    batch, draws, cfg = _v2v_batch(device, b=2)
+    coef = tvox.coefficients(batch["com"], draws, cfg)
+    with pytest.raises(ValueError):
+        tvox.voxelize(batch["frame"], coef, 86)
+    with pytest.raises(ValueError):
+        tvox.voxelize(batch["frame"][:, :, :638].contiguous(), coef, 88)
+    with pytest.raises(ValueError):
+        tvox.voxelize(batch["frame"], coef.cpu(), 88)
+    with pytest.raises(TypeError):
+        tvox.voxelize(batch["frame"].double(), coef, 88)
+
+
+def test_a_v2v_train_step_launches_the_voxeliser_once_with_no_sync(device):
+    """The full-width V2V step at b32: one launch of the voxeliser and 32
+    frames voxelised a step; its preprocess (grids and targets) under
+    ``set_sync_debug_mode("error")`` and traced with no copy from pageable
+    memory; the model received the kernel's grids."""
+    batch, draws, cfg = _v2v_batch(device)
+    torch.manual_seed(3)
+    net = V2VPoseNet(14).to(device)
+    state = create_train_state(net, opt="rmsprop", lr=2.5e-4, lr_decay=1.0)
+    step = make_train_step_v2v(cfg)
+    seen = []
+    hook = net.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    before = (tvox.LAUNCHES, tvox.VOXELIZED)
+    out = step(state, batch, draws=draws)
+    hook.remove()
+    assert (tvox.LAUNCHES - before[0], tvox.VOXELIZED - before[1]) == (1, 32)
+    assert torch.isfinite(out["loss"])
+    coef = tvox.coefficients(batch["com"], draws, cfg)
+    assert torch.equal(seen[0], tvox.voxelize_plain(batch["frame"], coef, 88))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                grid, target, _ = v2v_inputs(cfg, batch, draws)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any("voxelize_kernel" in n for n in names)
+    assert not [n for n in names if "Pageable" in n]
+    assert grid.shape == (32, 1, 88, 88, 88) and target.shape == (32, 14, 44, 44, 44)
